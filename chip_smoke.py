@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA card; prints its name and power limit.
-2. Builds the port's CUDA kernels from `faithdiff_tpu_torch/csrc/`.
-3. Holds each kernel against its plain PyTorch version on the card, in bf16
-   at the restore path's shapes, and times kernel, plain version, a PyTorch
-   library call that computes the same function (a yardstick only) and the
-   card's bound for the same work.
+2. Builds the port's CUDA kernels from `faithdiff_tpu_torch/csrc/` (one
+   `nvcc` per source, all started together).
+3. Holds the flash-attention and GroupNorm kernels against their plain
+   PyTorch versions on the card, in bf16 at the restore path's shapes, and
+   times kernel, plain version, a PyTorch library call that computes the
+   same function (a yardstick only) and the card's bound for the same work.
 4. Runs a full-width restore (default SDXL UNet / VAE / denoise-encoder
    configs, bf16, seeded random weights) of a 1024x1536 uint8 image: two
    128^2 latent tiles, 20 Euler steps, guidance 5, start_point "lr",
@@ -16,7 +17,19 @@
    was launched the expected number of times.
 5. Runs the restore's last UNet call once more under torch.profiler and
    prints device time by layer and by kernel, and the busy share.
-6. Prints the card line, a JSON line listing every ported kernel, then a
+6. Frees the restore, then holds the NF4 dequant-matmul kernel against its
+   plain version at the 13B captioner's shapes (M = 1, 2, 640 and the
+   caption's own prefill M, 2 x the prompt length), with its
+   bound and, as context only, a bf16 matmul against the decoded weight.
+7. Holds a tiny nf4 captioner LLaMA on the card (kernel) against the same
+   weights on the CPU (plain version, fp32).
+8. Captions two images with the full-width LLaVA-1.5-13B captioner
+   (`quant="nf4"`, ViT-L/14-336, mlp2x projector; bf16, seeded random
+   weights; the agent's defaults: temperature 0.2, top-p 0.7, 512 new
+   tokens) and checks the prompt, the tokens, finite logits and that the
+   NF4 kernel ran 280 times (7 projections x 40 layers) per forward pass;
+   then profiles the last decode step as step 5 profiles the UNet.
+9. Prints the card line, a JSON line listing every ported kernel, then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed.
 
@@ -24,11 +37,14 @@ Imports nothing of JAX. Exits nonzero on any failure.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -53,6 +69,16 @@ ATTN_REPORT, GN_REPORT = 0, 1
 
 TILE_PIXELS = (1024, 1536)
 STEPS = 20
+
+# the 13B LLaMA projections (in, out): q/k/v/o, gate/up, down; M = B at
+# decode and B * prompt length at prefill. check_nf4 adds the caption's
+# own prefill M (caption_prefill_m), whose last 64-row tile is partial.
+NF4_SHAPES = [(5120, 5120), (5120, 13824), (13824, 5120)]
+NF4_M = [1, 2, 640]
+NF4_REPORT = (1, 5120, 13824)            # (M, in, out) of the kernels entry
+CAPTION_IMAGES = [(768, 1024), (1024, 768)]
+CAPTION_NEW_TOKENS = 512
+NF4_PER_FORWARD = 7 * 40                 # projections x layers of the 13B LLaMA
 
 
 def fail(msg: str) -> None:
@@ -81,6 +107,25 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, launches: int = 20, replays: int = 10) -> float:
+    """Mean device time of one call of `fn`, from CUDA events around
+    replays of a CUDA graph holding `launches` calls: the host's launch
+    rate, which a loop of Python wrapper calls measures at a few tens of
+    microseconds a call, drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    return time_ms(torch, graph.replay, replays, warmup=1) / launches
 
 
 def print_ptxas(source: str, log: str) -> None:
@@ -315,6 +360,7 @@ def run_restore(torch):
 # lower-cased kernel-name fragments -> the layer they belong to, first
 # match wins (cuDNN's convolution kernels carry "gemm" in their names too)
 KERNEL_CLASSES = (("flash_fwd_kernel", "flash attention (ours)"),
+                  ("nf4_ge", "NF4 dequant-matmul (ours)"),
                   ("::gn_", "GroupNorm (ours)"),
                   ("fprop", "convolution"), ("conv", "convolution"),
                   ("nchwtonhwc", "cuDNN layout transpose"),
@@ -324,11 +370,11 @@ KERNEL_CLASSES = (("flash_fwd_kernel", "flash attention (ours)"),
                   ("copy", "copy / dtype cast"), ("elementwise", "elementwise"))
 
 
-def profile_unet_call(torch, unet, args, kwargs):
-    """One more UNet call, the restore's last, under torch.profiler: device
-    time by layer and by kernel, and the device's busy share between its
-    first and last kernel. The chrome trace is kept beside the built
-    kernels, in faithdiff_tpu_torch/_build/."""
+def profile_call(torch, label, module, args, kwargs):
+    """One more call of `module` under torch.profiler: device time by layer
+    and by kernel, and the device's busy share between its first and last
+    kernel. The chrome trace is kept beside the built kernels, as
+    faithdiff_tpu_torch/_build/<label>_trace.json."""
     from torch.profiler import ProfilerActivity, profile
 
     from faithdiff_tpu_torch.ops import _build
@@ -337,16 +383,16 @@ def profile_unet_call(torch, unet, args, kwargs):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            unet(*args, **kwargs)
+            module(*args, **kwargs)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(_build.BUILD_DIR, "unet_call_trace.json")
+    path = os.path.join(_build.BUILD_DIR, f"{label}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         kernels = [e for e in json.load(f)["traceEvents"]
                    if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
-        print("profile: the trace holds no device kernels: not measured",
+        print(f"{label}: the trace holds no device kernels: not measured",
               flush=True)
         return None
     by_class, by_name = {}, {}
@@ -367,10 +413,250 @@ def profile_unet_call(torch, unet, args, kwargs):
                   busy_share=busy / 1e3 / span_ms, host_wall_ms=wall_ms,
                   by_layer={k: v for k, v in sorted(by_class.items(),
                                                     key=lambda kv: -kv[1])})
-    print("profile", json.dumps(result), flush=True)
+    print(label, json.dumps(result), flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms:9.3f} ms  {ms / kernel_ms:6.1%}  {name[:110]}", flush=True)
     return result
+
+
+def check_nf4(torch):
+    """The NF4 kernel against its plain version at the captioner's shapes.
+    The kernel streams each weight once per call, as the decode path does
+    (280 different weights per token): its timed launches cycle through
+    copies of the weight that together exceed the 50 MB L2. The kernel and
+    the bf16 yardstick are timed from CUDA graphs (device time), the plain
+    version from a loop of calls."""
+    from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_matmul_kernel,
+                                                    nf4_matmul_reference)
+    from faithdiff_tpu_torch.utils.quantize import dequantize_nf4, quantize_nf4
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ms_checked = NF4_M + [caption_prefill_m()]
+    for in_f, out_f in NF4_SHAPES:
+        w = (torch.randn((in_f, out_f), generator=gen, device="cuda")
+             * in_f ** -0.5).to(torch.bfloat16)
+        q = quantize_nf4(w)
+        del w
+        w_dec = dequantize_nf4(q, torch.bfloat16).T.contiguous()   # [out, in]
+        weight_bytes = q.packed.numel() + q.absmax.numel() * 4
+        copies = [q] + [q._replace(packed=q.packed.clone(), absmax=q.absmax.clone())
+                        for _ in range(int(2 * 50e6 // weight_bytes))]
+        for m in ms_checked:
+            x = torch.randn((m, in_f), generator=gen, device="cuda").to(torch.bfloat16)
+            out = nf4_matmul_kernel(x, q)
+            torch.cuda.synchronize()
+            ref = nf4_matmul_reference(x, q)
+            err = (out.float() - ref.float()).abs()
+            # both round each decoded weight to bf16 once and multiply it
+            # exactly; the fp32 sums run in another order, which can move
+            # the one bf16 rounding of the output by a step (2^-8 relative)
+            tol = 1e-2 * (1 + ref.float().abs())
+            ok = bool((err <= tol).all()) and bool(torch.isfinite(out).all())
+            turn = iter(range(1 << 30))
+
+            def cold():
+                return nf4_matmul_kernel(x, copies[next(turn) % len(copies)])
+
+            b_ms, b_by = bound(2 * m * in_f * out_f,
+                               weight_bytes + m * in_f * 2 + m * out_f * 2,
+                               PEAK_BF16_FLOPS)
+            row = dict(m=m, in_f=in_f, out_f=out_f, max_abs_err=float(err.max()),
+                       tol="1e-2*(1+|ref|)", ok=ok,
+                       ms=graph_ms(torch, cold),
+                       plain_ms=time_ms(torch, lambda: nf4_matmul_reference(x, q), 3, 1),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       decoded_bf16_matmul_ms=graph_ms(
+                           torch, lambda: torch.matmul(x, w_dec.T)))
+            print("nf4_matmul", json.dumps(row), flush=True)
+            rows.append(row)
+        del q, w_dec, copies, x, out, ref, err, tol
+        torch.cuda.empty_cache()
+    print("  (decoded_bf16_matmul_ms: torch.matmul of x with the weight already "
+          "decoded to bf16, context only: no single PyTorch call computes the NF4 "
+          "dequant-matmul)", flush=True)
+    return rows
+
+
+class WordTokenizer:
+    """Deterministic stand-in for LLaMA's SentencePiece tokenizer, whose
+    files are not in the repository: one id per word or punctuation mark,
+    given in order of first use from 3 on; BOS 1, EOS 2. It keeps every id
+    sequence it decodes."""
+
+    eos_token_id = 2
+
+    def __init__(self):
+        self.vocab, self.decoded = {}, []
+
+    def __call__(self, text, add_special_tokens=True, return_tensors=None):
+        import numpy as np
+
+        ids = [self.vocab.setdefault(w, 3 + len(self.vocab))
+               for w in re.findall(r"\w+|[^\w\s]", text)]
+        ids = ([1] if add_special_tokens else []) + ids
+        return types.SimpleNamespace(input_ids=np.asarray([ids], np.int64))
+
+    def decode(self, ids, skip_special_tokens=True):
+        self.decoded.append([int(i) for i in ids])
+        words = {v: k for k, v in self.vocab.items()}
+        return " ".join(words.get(int(i), f"<{int(i)}>") for i in ids
+                        if not (skip_special_tokens and int(i) < 3))
+
+
+def caption_prompt_len(tok) -> int:
+    """Tokens of the caption's prompt: the Vicuna text around the 576
+    image tokens of one ViT-L/14-336 image (the pad path)."""
+    from faithdiff_tpu_torch.captioner.agent import build_vicuna_prompt
+
+    pre, post = build_vicuna_prompt("Describe this image and its style in a very "
+                                    "detailed manner.")
+    return (tok(pre).input_ids.shape[1] + 576
+            + tok(post, add_special_tokens=False).input_ids.shape[1])
+
+
+def caption_prefill_m() -> int:
+    """Rows of every NF4 launch of the caption's prefill: batch x prompt."""
+    return len(CAPTION_IMAGES) * caption_prompt_len(WordTokenizer())
+
+
+def check_caption_small(torch):
+    """A tiny nf4 LLaMA on the card (the NF4 kernel, bf16) against the same
+    weights on the CPU (the plain version, fp32): prefill logits (the
+    tiled path, M = 24) and one-row logits (the M <= 8 path)."""
+    import dataclasses
+
+    from faithdiff_tpu_torch.captioner.llama import (LlamaConfig,
+                                                     LlamaForCausalLM,
+                                                     random_init_quantized_)
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), quant="nf4")
+    cpu = LlamaForCausalLM(cfg).eval().requires_grad_(False)
+    gen = torch.Generator().manual_seed(3)
+    random_init_(cpu, gen)
+    random_init_quantized_(cpu, gen)
+    with torch.device("cuda"):
+        card = LlamaForCausalLM(cfg, dtype=torch.bfloat16).eval().requires_grad_(False)
+    card.load_state_dict(cpu.state_dict())
+    emb = torch.randn((2, 12, cfg.hidden_size), generator=gen)
+    pos = torch.arange(12)[None].expand(2, 12)
+    worst = 0.0
+    with torch.no_grad():
+        for e, p in ((emb, pos), (emb[:1, :1], pos[:1, :1])):
+            _build.launches.clear()
+            ref, _ = cpu(e, p)
+            got, _ = card(e.cuda().bfloat16(), p.cuda())
+            torch.cuda.synchronize()
+            if _build.launches["nf4_matmul"] != 7 * cfg.num_hidden_layers:
+                fail(f"tiny captioner: {dict(_build.launches)} launches")
+            err = (got.float().cpu() - ref).abs()
+            # bf16 activations and weights against fp32 through two layers
+            if not bool((err <= 5e-2 * (1 + ref.abs())).all()):
+                fail(f"tiny captioner logits off the CPU reference: max {float(err.max())}")
+            worst = max(worst, float(err.max()))
+    print(f"caption_small: tiny nf4 LLaMA on the card vs the CPU plain version, "
+          f"max |logit err| {worst:.4g} (tol 5e-2*(1+|ref|))", flush=True)
+
+
+def run_caption(torch):
+    """The captioner's main path: build_caption_agent() at full width (13B
+    LLaMA nf4, ViT-L/14-336), one caption_batch of two images."""
+    import numpy as np
+
+    from faithdiff_tpu_torch.captioner import (CLIPVisionConfig, LlamaConfig,
+                                               build_caption_agent)
+    from faithdiff_tpu_torch.ops import _build
+
+    tok = WordTokenizer()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    agent = build_caption_agent(tok, LlamaConfig(quant="nf4"), CLIPVisionConfig(),
+                                dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"caption: built LLaVA-1.5-13B nf4 + ViT-L/14-336 in {build_s:.1f} s "
+          f"(init + quantise on the card), {weights_gib:.2f} GiB", flush=True)
+    if (agent.temperature, agent.top_p, agent.max_new_tokens) != (0.2, 0.7, 512):
+        fail("caption agent defaults changed")
+    agent.max_new_tokens = CAPTION_NEW_TOKENS
+
+    calls, finite = [], []
+
+    def record():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    last = []
+
+    def lm_pre(module, args, kwargs):
+        calls.append([record(), None, args[0].shape[1], args[0].shape[0]])
+        last[:] = [args, kwargs]
+
+    def lm_post(module, args, out):
+        calls[-1][1] = record()
+        finite.append(torch.isfinite(out[0]).all())
+
+    vis = []
+    hooks = [agent.llama.register_forward_pre_hook(lm_pre, with_kwargs=True),
+             agent.llama.register_forward_hook(lm_post),
+             agent.vision.register_forward_pre_hook(lambda m, a: vis.append(record())),
+             agent.projector.register_forward_hook(lambda m, a, o: vis.append(record()))]
+
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in CAPTION_IMAGES]
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    captions = agent.caption_batch(images, seed=0)
+    end = record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    for h in hooks:
+        h.remove()
+
+    n_prompt = caption_prompt_len(tok)
+    n_fwd = len(calls)
+    if calls[0][2] != n_prompt or any(c[2] != 1 for c in calls[1:]):
+        fail(f"prompt length {calls[0][2]}, expected {n_prompt}")
+    if calls[0][2] * calls[0][3] != caption_prefill_m():
+        fail(f"prefill rows {calls[0][2]} x {calls[0][3]} are not the M check_nf4 held")
+    if not bool(torch.stack(finite).all()):
+        fail("caption logits are not finite")
+    if len(captions) != 2 or len(tok.decoded) != 2:
+        fail(f"{len(captions)} captions")
+    for ids in tok.decoded:
+        if not ids or not all(0 <= i < 32000 for i in ids):
+            fail(f"caption tokens out of range or empty: {ids[:10]}")
+    if n_fwd < 2 or n_fwd > CAPTION_NEW_TOKENS:
+        fail(f"{n_fwd} forward passes")
+    if counts != {"nf4_matmul": NF4_PER_FORWARD * n_fwd}:
+        fail(f"launch counts {counts}, expected nf4_matmul = {NF4_PER_FORWARD} x {n_fwd}")
+    prefill_ms = calls[0][0].elapsed_time(calls[0][1])
+    decode_ms = calls[0][1].elapsed_time(end)
+    n_decode = n_fwd - 1
+    result = dict(
+        build_s=build_s, wall_s=wall_s,
+        vision_projector_ms=vis[0].elapsed_time(vis[1]),
+        prefill_ms=prefill_ms, prompt_len=n_prompt, batch=len(images),
+        decode_steps=n_decode, decode_ms_per_step=decode_ms / n_decode,
+        decode_forward_ms_per_step=sum(c[0].elapsed_time(c[1]) for c in calls[1:]) / n_decode,
+        tokens_per_s=len(images) * n_decode / (decode_ms / 1e3),
+        lengths=[len(ids) for ids in tok.decoded],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=counts)
+    print("caption", json.dumps(result), flush=True)
+    for c in captions:
+        print(f"  caption ({len(c)} chars): {c[:100]!r}", flush=True)
+    # the last decode step once more (its cache slot is rewritten in place
+    # with the same values)
+    profile_call(torch, "profile_decode", agent.llama, *last)
+    return counts
 
 
 def main() -> int:
@@ -404,11 +690,21 @@ def main() -> int:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
 
     counts, unet, (args, kwargs) = run_restore(torch)
-    profile_unet_call(torch, unet, args, kwargs)
+    profile_call(torch, "profile", unet, args, kwargs)
+    del unet, args, kwargs
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    def entry(name, row, source, replaces):
+    nf4 = check_nf4(torch)
+    bad = [r for r in nf4 if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} NF4 kernel checks out of tolerance: {bad}")
+    check_caption_small(torch)
+    caption_counts = run_caption(torch)
+
+    def entry(name, row, source, replaces, launches=counts):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=counts[name], max_abs_err=row["max_abs_err"],
+                    launches=launches[name], max_abs_err=row["max_abs_err"],
                     ms=row["ms"], plain_ms=row["plain_ms"],
                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                     library_ms=row["library_ms"])
@@ -423,6 +719,10 @@ def main() -> int:
         entry("group_norm_apply", apply_[GN_REPORT],
               "faithdiff_tpu_torch/csrc/group_norm.cu",
               "faithdiff_tpu/ops/groupnorm.py:92"),
+        entry("nf4_matmul",
+              next(r for r in nf4 if (r["m"], r["in_f"], r["out_f"]) == NF4_REPORT),
+              "faithdiff_tpu_torch/csrc/nf4_matmul.cu",
+              "faithdiff_tpu/ops/nf4_matmul.py:73", caption_counts),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

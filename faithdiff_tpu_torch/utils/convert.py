@@ -10,6 +10,15 @@ transforms of `faithdiff_tpu/utils/convert.py` (`_flax_path_to_torch_key`,
 packed `attn.in_proj_weight`, `spatial_ch_projs`), `to_out` -> `to_out.0`,
 conv kernels HWIO -> OIHW, dense kernels transposed, norm `scale` ->
 `weight`.
+
+The captioner's carry functions (`llama_state_dict_from_flax`,
+`clip_vision_state_dict_from_flax`, `projector_state_dict_from_flax`,
+`mpt_state_dict_from_flax`) give transformers / LLaVA checkpoint keys, the
+inverse of `faithdiff_tpu/utils/convert.py`'s `convert_llama`,
+`convert_clip_vision`, `convert_vision_projector` and `convert_mpt`.
+Quantised leaves (NF4 `packed` / `absmax`, int8 `values` / `scales`) carry
+unchanged: the JAX bytes, shapes and dtypes become the buffers of
+`NF4Dense` / `Int8Dense`.
 """
 from __future__ import annotations
 
@@ -97,3 +106,108 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.T
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+# ---------------------------------------------------------------------------
+# captioner
+# ---------------------------------------------------------------------------
+
+# quantised leaves keep their name, bytes, shape and dtype
+_QUANT_LEAVES = ("packed", "absmax", "values", "scales")
+
+
+def _unwrap(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params["params"] if set(params) == {"params"} else params
+
+
+def _index(name: str, base: str) -> str:
+    """`layers_3` -> `layers.3` (flax list-module names)."""
+    if name.startswith(base + "_") and name[len(base) + 1:].isdigit():
+        return f"{base}.{name[len(base) + 1:]}"
+    return name
+
+
+def _carry_leaf(prefix: str, leaf: str, value: Any) -> Tuple[str, torch.Tensor]:
+    """One flax leaf -> (state-dict key, tensor): dense kernels transposed,
+    conv kernels HWIO -> OIHW, `embedding` / `scale` -> `weight`, quantised
+    leaves unchanged, float leaves as fp32."""
+    arr = np.asarray(value)
+    if leaf in _QUANT_LEAVES:
+        return f"{prefix}.{leaf}", torch.from_numpy(np.array(arr))
+    arr = arr.astype(np.float32)
+    if leaf == "kernel":
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        leaf = "weight"
+    elif leaf in ("embedding", "scale"):
+        leaf = "weight"
+    elif leaf not in ("weight", "bias"):
+        raise KeyError(f"unhandled flax leaf {prefix}/{leaf}")
+    return f"{prefix}.{leaf}", torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _carry(params: Mapping[str, Any], rename) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(_unwrap(params)):
+        key, tensor = _carry_leaf(rename(path[:-1]), path[-1], value)
+        out[key] = tensor
+    return out
+
+
+def llama_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `LlamaForCausalLM` params (fp, int8 or nf4) -> the port's state
+    dict in transformers names: `model.embed_tokens.weight`,
+    `model.layers.{i}.self_attn.{q,k,v,o}_proj.*`,
+    `model.layers.{i}.mlp.{gate,up,down}_proj.*`, `model.norm.weight`,
+    `lm_head.*`."""
+    def rename(path):
+        if path[0] == "embed_tokens":
+            return "model.embed_tokens"
+        parts = [_index(p, "layers") for p in path]
+        if parts[-1] in ("gate_proj", "up_proj", "down_proj"):
+            parts.insert(-1, "mlp")
+        return ".".join(parts)
+
+    return _carry(params, rename)
+
+
+def clip_vision_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `CLIPVisionTower` params -> the port's state dict in transformers
+    `CLIPVisionModel` names (`vision_model.embeddings.*`,
+    `vision_model.pre_layrnorm.*`, `vision_model.encoder.layers.{i}.*`)."""
+    params = dict(_unwrap(params))
+    out = {"vision_model.embeddings.class_embedding":
+           torch.from_numpy(np.asarray(params.pop("class_embedding"), np.float32).copy()),
+           "vision_model.embeddings.position_embedding.weight":
+           torch.from_numpy(np.asarray(params.pop("position_embedding"), np.float32).copy())}
+
+    def rename(path):
+        if path[0] == "patch_embedding":
+            return "vision_model.embeddings.patch_embedding"
+        if path[0] == "pre_layrnorm":
+            return "vision_model.pre_layrnorm"
+        layer, sub = _index(path[0], "layers"), path[1]
+        group = ("self_attn." if sub.endswith("_proj")
+                 else "mlp." if sub in ("fc1", "fc2") else "")
+        return f"vision_model.encoder.{layer}.{group}{sub}"
+
+    out.update(_carry(params, rename))
+    return out
+
+
+def projector_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `VisionProjector` params (`linear_0`, `linear_2`) -> LLaVA's
+    `mm_projector` keys without the namespace (`0.*`, `2.*`)."""
+    return _carry(params, lambda path: path[0].replace("linear_", ""))
+
+
+def mpt_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `MPTForCausalLM` params -> transformers MPT names
+    (`transformer.wte.weight`, `transformer.blocks.{i}.attn.Wqkv.weight`,
+    `transformer.blocks.{i}.ffn.up_proj.weight`, `transformer.norm_f.weight`)."""
+    def rename(path):
+        parts = [_index(p, "blocks") for p in path]
+        if parts[-1] in ("up_proj", "down_proj"):
+            parts.insert(-1, "ffn")
+        return "transformer." + ".".join(parts)
+
+    return _carry(params, rename)

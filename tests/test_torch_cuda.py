@@ -13,6 +13,10 @@ from faithdiff_tpu_torch.ops.attention import (attention_reference,
                                                flash_attention,
                                                multi_head_attention)
 from faithdiff_tpu_torch.ops.groupnorm import group_norm, group_norm_reference
+from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_matmul_kernel,
+                                                nf4_matmul_reference)
+from faithdiff_tpu_torch.utils.quantize import (NF4_PACK_PAIRWISE, NF4Weight,
+                                                nf4_matmul, quantize_nf4)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +120,52 @@ def test_group_norm_rejects_non_contiguous(cuda):
     with pytest.raises(ValueError):
         group_norm(x, torch.ones(32, device=cuda), torch.zeros(32, device=cuda),
                    8)
+
+
+def _nf4(cuda, in_f, out_f, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((in_f, out_f), generator=g, device=cuda) * in_f ** -0.5
+    return quantize_nf4(w.bfloat16()), g
+
+
+@pytest.mark.parametrize("m", [1, 3, 17, 640])
+@pytest.mark.parametrize("in_f,out_f", [(512, 288), (576, 40)])
+def test_nf4_matmul_matches_plain(cuda, m, in_f, out_f):
+    """Both paths of the kernel (M <= 8 and the tiled product), a ragged
+    out, and in=576, whose low-nibble half starts mid-block."""
+    q, g = _nf4(cuda, in_f, out_f)
+    x = torch.randn((m, in_f), generator=g, device=cuda).bfloat16()
+    _build.launches.clear()
+    out = nf4_matmul_kernel(x, q)
+    torch.cuda.synchronize()
+    assert _build.launches["nf4_matmul"] == 1
+    ref = nf4_matmul_reference(x, q)
+    # the same bf16 weights and exact products; fp32 sums in another order
+    # can move the one bf16 rounding of the output by a step
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 1e-2 * (1 + ref.float().abs())).all())
+
+
+def test_nf4_matmul_rejects_what_it_does_not_take(cuda):
+    q, _ = _nf4(cuda, 512, 64)
+    x = torch.randn((2, 512), device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        nf4_matmul_kernel(x, q._replace(pack_format=NF4_PACK_PAIRWISE))
+    with pytest.raises(TypeError):
+        nf4_matmul_kernel(x.float(), q)
+    odd = NF4Weight(torch.zeros((64, 48), dtype=torch.uint8, device=cuda),
+                    torch.ones((64, 1), device=cuda), (96, 64))
+    with pytest.raises(ValueError):
+        nf4_matmul_kernel(torch.zeros((2, 96), device=cuda).bfloat16(), odd)
+    with pytest.raises(ValueError):
+        nf4_matmul_kernel(torch.randn((512, 2), device=cuda).bfloat16().T, q)
+
+
+def test_nf4_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
+    q, g = _nf4(cuda, 512, 96)
+    x = torch.randn((2, 3, 512), generator=g, device=cuda).bfloat16()
+    _build.launches.clear()
+    out = nf4_matmul(x, q)
+    torch.cuda.synchronize()
+    assert _build.launches["nf4_matmul"] == 1
+    assert out.shape == (2, 3, 96) and out.dtype == torch.bfloat16

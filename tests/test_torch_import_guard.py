@@ -1,4 +1,5 @@
-"""The PyTorch port imports nothing of JAX, flax or the JAX package: every
+"""The PyTorch port imports nothing of JAX, flax or the JAX package, and
+neither PIL nor transformers (the card's machine has neither): every
 module of `faithdiff_tpu_torch` and `chip_smoke.py`, read as source, and
 the package as imported in a fresh interpreter."""
 import ast
@@ -8,12 +9,13 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "faithdiff_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "faithdiff_tpu", "PIL",
+             "transformers")
 
 
 def _port_sources():
     files = sorted((ROOT / "faithdiff_tpu_torch").rglob("*.py"))
-    assert len(files) >= 20, files
+    assert len(files) >= 28, files
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -44,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
         "import faithdiff_tpu_torch, faithdiff_tpu_torch.pipelines, "
         "faithdiff_tpu_torch.models, faithdiff_tpu_torch.ops.attention, "
         "faithdiff_tpu_torch.ops.groupnorm, faithdiff_tpu_torch.utils.convert, "
-        "faithdiff_tpu_torch.utils.color_fix\n"
+        "faithdiff_tpu_torch.utils.color_fix, faithdiff_tpu_torch.captioner, "
+        "faithdiff_tpu_torch.captioner.mpt, faithdiff_tpu_torch.ops.nf4_matmul, "
+        "faithdiff_tpu_torch.utils.quantize\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
