@@ -6,10 +6,11 @@
 1. Requires a CUDA card; prints its name and power limit.
 2. Builds the port's CUDA kernels from `faithdiff_tpu_torch/csrc/` (one
    `nvcc` per source, all started together).
-3. Holds the flash-attention and GroupNorm kernels against their plain
-   PyTorch versions on the card, in bf16 at the restore path's shapes, and
-   times kernel, plain version, a PyTorch library call that computes the
-   same function (a yardstick only) and the card's bound for the same work.
+3. Holds the flash-attention kernels (BHSD at d=64 and d=128, packed), the
+   attention-variant kernel and the GroupNorm kernels against their plain
+   PyTorch versions on the card, in bf16 at their paths' shapes, and times
+   kernel, plain version, a PyTorch library call that computes the same
+   function (a yardstick only) and the card's bound for the same work.
 4. Runs a full-width restore (default SDXL UNet / VAE / denoise-encoder
    configs, bf16, seeded random weights) of a 1024x1536 uint8 image: two
    128^2 latent tiles, 20 Euler steps, guidance 5, start_point "lr",
@@ -17,12 +18,21 @@
    was launched the expected number of times.
 5. Runs the restore's last UNet call once more under torch.profiler and
    prints device time by layer and by kernel, and the busy share.
+5b. Runs the same restore again on the packed-attention path
+   (`transformer2d._BSND_ATTN`, as FAITHDIFF_BSND_ATTN=1 sets it), checks
+   it and its launches, profiles its last UNet call, and holds that call
+   on the packed path against the default path.
+5c. Runs the attention-variant benchmark's entry point
+   (`faithdiff_tpu_torch.scripts.bench_attention_variants.main`) and
+   checks its launches.
 6. Frees the restore, then holds the NF4 dequant-matmul kernel against its
    plain version at the 13B captioner's shapes (M = 1, 2, 640 and the
    caption's own prefill M, 2 x the prompt length), with its
    bound and, as context only, a bf16 matmul against the decoded weight.
 7. Holds a tiny nf4 captioner LLaMA on the card (kernel) against the same
-   weights on the CPU (plain version, fp32).
+   weights on the CPU (plain version, fp32), and runs the causal prefill
+   of the full-width 13B LLaMA's first two layers over 1024 tokens, which
+   goes through the flash kernel at head dim 128.
 8. Captions two images with the full-width LLaVA-1.5-13B captioner
    (`quant="nf4"`, ViT-L/14-336, mlp2x projector; bf16, seeded random
    weights; the agent's defaults: temperature 0.2, top-p 0.7, 512 new
@@ -37,6 +47,7 @@ Imports nothing of JAX. Exits nonzero on any failure.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -53,9 +64,16 @@ PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 
 # (shape [B, H, S, D], causal): the UNet self-attentions at a 1024^2 tile
-# (2 tiles x CFG pair = batch 4) and the causal square case
+# (2 tiles x CFG pair = batch 4), the causal square case, the 13B LLaMA's
+# causal prefill over 1024 tokens (a batch of two) and a non-causal d=128
+# case at the largest K/V the JAX gate sends to its kernel (4096 x 128)
 ATTN_SHAPES = [((4, 10, 4096, 64), False), ((4, 20, 1024, 64), False),
-               ((1, 20, 1024, 64), True)]
+               ((1, 20, 1024, 64), True), ((2, 40, 1024, 128), True),
+               ((1, 40, 4096, 128), False)]
+# ([b, s, n*d], heads): the UNet self-attentions on the packed path
+PACKED_SHAPES = [((4, 4096, 640), 10), ((4, 1024, 1280), 20)]
+# (shape, base2, block_k) of the variant kernel's kernels entry
+VARIANT_REPORT = ((20, 4096, 64), True, 64)
 # (shape NCHW, eps, act, with add): UNet ResNet / Transformer2D norms and
 # the full-resolution VAE decoder norm
 GN_SHAPES = [((4, 320, 128, 128), 1e-5, "silu", True),
@@ -65,7 +83,7 @@ GN_SHAPES = [((4, 320, 128, 128), 1e-5, "silu", True),
 # the shape each kernel's JSON entry reports: the first attention shape,
 # and the GroupNorm shape for which one library call (F.group_norm)
 # computes the same function
-ATTN_REPORT, GN_REPORT = 0, 1
+ATTN_REPORT, GN_REPORT, PACKED_REPORT = 0, 1, 0
 
 TILE_PIXELS = (1024, 1536)
 STEPS = 20
@@ -79,6 +97,12 @@ NF4_REPORT = (1, 5120, 13824)            # (M, in, out) of the kernels entry
 CAPTION_IMAGES = [(768, 1024), (1024, 768)]
 CAPTION_NEW_TOKENS = 512
 NF4_PER_FORWARD = 7 * 40                 # projections x layers of the 13B LLaMA
+PREFILL_LAYERS, PREFILL_TOKENS = 2, 1024
+# the packed and the default path run the self-attentions through the same
+# tile arithmetic, and on an H100 they gave the same bits (max error 0);
+# one bf16 step of the largest output leaves room only for a library call
+# that sums the cross-attention's products in another order
+PARITY_TOL = 2 ** -8                     # x max|default path's output|
 
 
 def fail(msg: str) -> None:
@@ -191,6 +215,94 @@ def check_attention(torch):
     return rows
 
 
+def check_attention_packed(torch):
+    """The packed-layout kernel against `einsum_bsnd` at the UNet's packed
+    shapes; SDPA on the same data seen as [b, n, s, d] views is the
+    yardstick."""
+    import torch.nn.functional as F
+
+    from faithdiff_tpu_torch.ops.attention import (einsum_bsnd,
+                                                   flash_attention_packed)
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for shape, heads in PACKED_SHAPES:
+        b, s, f = shape
+        d = f // heads
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        scale = d ** -0.5
+        out = flash_attention_packed(q, k, v, heads, scale)
+        torch.cuda.synchronize()
+        ref = einsum_bsnd(q, k, v, heads, scale)
+        err = (out.float() - ref.float()).abs()
+        # as for the BHSD kernel: q and p are rounded to bf16 at other points
+        tol = 1e-2 + 8e-3 * ref.float().abs()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(out).all())
+        qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v))
+        iters = 20 if s >= 4096 else 50
+        b_ms, b_by = bound(4 * b * heads * d * s * s, 4 * b * s * f * 2,
+                           PEAK_BF16_FLOPS)
+        row = dict(
+            shape=list(shape), heads=heads, max_abs_err=float(err.max()),
+            tol="1e-2 + 8e-3*|ref|", ok=ok,
+            ms=time_ms(torch, lambda: flash_attention_packed(q, k, v, heads, scale), iters),
+            plain_ms=time_ms(torch, lambda: einsum_bsnd(q, k, v, heads, scale), 3, 1),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale), iters),
+            bound_ms=b_ms, bound_by=b_by)
+        print("attention_packed", json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, qh, kh, vh, out, ref, err, tol
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_attention_variants(torch):
+    """Every instantiated variant against `attention_variant_reference` at
+    every shape of the benchmark; SDPA on the same data is the yardstick."""
+    import torch.nn.functional as F
+
+    from faithdiff_tpu_torch.ops.attention_variants import (
+        VARIANTS, attention_variant, attention_variant_reference)
+    from faithdiff_tpu_torch.scripts.bench_attention_variants import SHAPES
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for bh, s, d in SHAPES:
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        scale = d ** -0.5
+        iters = 20 if s >= 4096 else 50
+        b_ms, b_by = bound(4 * bh * d * s * s, 4 * bh * s * d * 2,
+                           PEAK_BF16_FLOPS)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], scale=scale), iters)
+        for base2, bk in VARIANTS:
+            out = attention_variant(q, k, v, scale, base2, bk)
+            torch.cuda.synchronize()
+            ref = attention_variant_reference(q, k, v, scale, base2)
+            err = (out.float() - ref.float()).abs()
+            # online against one-pass softmax: p is rounded to bf16 against
+            # another running max
+            tol = 1e-2 + 8e-3 * ref.float().abs()
+            ok = bool((err <= tol).all()) and bool(torch.isfinite(out).all())
+            row = dict(
+                shape=[bh, s, d], base2=base2, block_k=bk,
+                max_abs_err=float(err.max()), tol="1e-2 + 8e-3*|ref|", ok=ok,
+                ms=time_ms(torch, lambda: attention_variant(
+                    q, k, v, scale, base2, bk), iters),
+                plain_ms=time_ms(torch, lambda: attention_variant_reference(
+                    q, k, v, scale, base2), 3, 1),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            print("attention_variant", json.dumps(row), flush=True)
+            rows.append(row)
+            del out, ref, err, tol
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_group_norm(torch):
     import torch.nn.functional as F
 
@@ -262,13 +374,23 @@ def count_modules(module, cls) -> int:
     return sum(isinstance(m, cls) for m in module.modules())
 
 
-def run_restore(torch):
-    """The main path: build_pipeline() at full width, one 2-tile restore."""
-    import numpy as np
+@contextlib.contextmanager
+def attention_path(packed: bool):
+    """Within the block, the UNet's Attention modules take the packed path
+    (`transformer2d._BSND_ATTN`, which FAITHDIFF_BSND_ATTN=1 sets at
+    import) when `packed`, the default path otherwise."""
+    from faithdiff_tpu_torch.models import transformer2d
 
-    from faithdiff_tpu_torch.models.layers import GroupNorm
-    from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
-    from faithdiff_tpu_torch.ops import _build
+    before = transformer2d._BSND_ATTN
+    transformer2d._BSND_ATTN = packed
+    try:
+        yield
+    finally:
+        transformer2d._BSND_ATTN = before
+
+
+def build_restore(torch):
+    """build_pipeline() at full width."""
     from faithdiff_tpu_torch.pipelines import build_pipeline
 
     t0 = time.perf_counter()
@@ -279,10 +401,24 @@ def run_restore(torch):
                    for p in m.parameters())
     print(f"restore: built pipeline in {build_s:.1f} s, {n_params / 1e9:.3f} B params",
           flush=True)
+    return pipe
 
+
+def run_restore(torch, pipe, packed: bool):
+    """The main path: one 2-tile restore, on the default attention path or
+    on the packed one. Returns the launch counts and the last UNet call's
+    (args, kwargs)."""
+    import numpy as np
+
+    from faithdiff_tpu_torch.models.layers import GroupNorm
+    from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
+    from faithdiff_tpu_torch.ops import _build
+
+    label = "restore_packed" if packed else "restore"
     # each GroupNorm module runs once per forward of its model; every
     # self-attention (attn1) of the UNet runs at >= 1024 tokens at a 128^2
-    # latent tile and so goes to the flash kernel
+    # latent tile and so goes to a flash kernel: the BHSD one by default,
+    # the packed one on the packed path
     gn_unet = count_modules(pipe.unet, GroupNorm)
     attn_unet = count_modules(pipe.unet, BasicTransformerBlock)
     if (gn_unet, attn_unet) != (47, 70):
@@ -315,17 +451,18 @@ def run_restore(torch):
     prompt = torch.zeros((1, 77, 2048))
     pooled = torch.zeros((1, 1280))
 
-    _build.launches.clear()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    latents = pipe(img, prompt, pooled, seed=0, output_type="latent")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    out = pipe.decode(latents, img, output_type="uint8")
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    counts = dict(_build.launches)
+    with attention_path(packed):
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        latents = pipe(img, prompt, pooled, seed=0, output_type="latent")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = pipe.decode(latents, img, output_type="uint8")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = dict(_build.launches)
     h1.remove()
     h2.remove()
     for a, b in zip(events[::2], events[1::2]):
@@ -341,7 +478,8 @@ def run_restore(torch):
         fail(f"output {type(out)} {getattr(out, 'shape', None)}")
     if len(unet_ms) != STEPS:
         fail(f"{len(unet_ms)} UNet calls, expected {STEPS}")
-    expected = {"flash_attention_fwd": STEPS * attn_unet,
+    flash = "flash_attention_bsnd_fwd" if packed else "flash_attention_fwd"
+    expected = {flash: STEPS * attn_unet,
                 "group_norm_stats": STEPS * gn_unet + gn_rest,
                 "group_norm_apply": STEPS * gn_unet + gn_rest}
     if counts != expected:
@@ -350,16 +488,37 @@ def run_restore(torch):
         wall_s=t2 - t0, denoise_call_s=t1 - t0, decode_s=t2 - t1,
         unet_ms_per_step=sum(unet_ms) / len(unet_ms),
         unet_ms_first=unet_ms[0], unet_ms_min=min(unet_ms),
+        unet_ms_median=sorted(unet_ms)[STEPS // 2],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         steps=STEPS, tiles=2, unet_batch=4, launches=counts,
         out_mean=float(out.mean()))
-    print("restore", json.dumps(result), flush=True)
-    return counts, pipe.unet, last_call
+    print(label, json.dumps(result), flush=True)
+    return counts, last_call
+
+
+def check_path_parity(torch, unet, args, kwargs):
+    """One UNet call on the packed path against the same call on the
+    default path, same inputs."""
+    with torch.no_grad():
+        with attention_path(False):
+            ref = unet(*args, **kwargs).float()
+        with attention_path(True):
+            got = unet(*args, **kwargs).float()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    result = dict(max_abs_err=err, max_abs_ref=scale,
+                  mean_abs_err=float((got - ref).abs().mean()),
+                  tol=f"{PARITY_TOL} * max|ref|",
+                  ok=bool(torch.isfinite(got).all()) and err <= PARITY_TOL * scale)
+    print("path_parity", json.dumps(result), flush=True)
+    if not result["ok"]:
+        fail(f"packed and default UNet calls disagree: {result}")
 
 
 # lower-cased kernel-name fragments -> the layer they belong to, first
 # match wins (cuDNN's convolution kernels carry "gemm" in their names too)
-KERNEL_CLASSES = (("flash_fwd_kernel", "flash attention (ours)"),
+KERNEL_CLASSES = (("flash_bsnd_fwd_kernel", "packed flash attention (ours)"),
+                  ("flash_fwd_kernel", "flash attention (ours)"),
                   ("nf4_ge", "NF4 dequant-matmul (ours)"),
                   ("::gn_", "GroupNorm (ours)"),
                   ("fprop", "convolution"), ("conv", "convolution"),
@@ -560,6 +719,74 @@ def check_caption_small(torch):
           f"max |logit err| {worst:.4g} (tol 5e-2*(1+|ref|))", flush=True)
 
 
+def check_llama_prefill(torch):
+    """The causal prefill of the full-width 13B LLaMA's first two layers
+    (nf4, bf16, seeded random weights) over a 1024-token prompt: the
+    flash kernel at head dim 128, once a layer."""
+    import dataclasses
+
+    from faithdiff_tpu_torch.captioner.llama import (LlamaConfig,
+                                                     LlamaForCausalLM,
+                                                     random_init_quantized_)
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+
+    cfg = dataclasses.replace(LlamaConfig(quant="nf4"),
+                              num_hidden_layers=PREFILL_LAYERS)
+    with torch.device("cuda"):
+        model = LlamaForCausalLM(cfg, dtype=torch.bfloat16).eval().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    random_init_(model, gen)
+    random_init_quantized_(model, gen)
+    emb = torch.randn((1, PREFILL_TOKENS, cfg.hidden_size), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    pos = torch.arange(PREFILL_TOKENS, device="cuda")[None]
+    with torch.no_grad():
+        model(emb, pos)                                     # warm-up
+        _build.launches.clear()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        logits, _ = model(emb, pos)
+        end.record()
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    expected = {"flash_attention_fwd": PREFILL_LAYERS,
+                "nf4_matmul": 7 * PREFILL_LAYERS}
+    if counts != expected:
+        fail(f"13B prefill launch counts {counts}, expected {expected}")
+    if tuple(logits.shape) != (1, PREFILL_TOKENS, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"13B prefill logits {tuple(logits.shape)} not finite or misshapen")
+    print("llama_prefill", json.dumps(dict(
+        layers=PREFILL_LAYERS, tokens=PREFILL_TOKENS, head_dim=128,
+        ms=start.elapsed_time(end), launches=counts)), flush=True)
+    del model, emb, logits
+    torch.cuda.empty_cache()
+
+
+def run_bench(torch):
+    """The attention-variant benchmark's entry point, as a user runs it."""
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops.attention_variants import VARIANTS
+    from faithdiff_tpu_torch.scripts import bench_attention_variants as bench
+
+    _build.launches.clear()
+    rows = bench.main()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    if len(rows) != len(bench.SHAPES) * len(VARIANTS):
+        fail(f"bench: {len(rows)} rows")
+    # the variants differ from the first one by the bf16 roundings of q
+    # and p; outputs are averages of N(0, 1) values, |o| << 1
+    bad = [r for r in rows if not r["max_err_vs_first"] <= 2e-2]
+    if bad:
+        fail(f"bench: variants disagree: {bad}")
+    if not counts.get("attention_variant_fwd") or set(counts) != {"attention_variant_fwd"}:
+        fail(f"bench launch counts {counts}")
+    print("bench_attention_variants", json.dumps(dict(launches=counts)), flush=True)
+    return counts
+
+
 def run_caption(torch):
     """The captioner's main path: build_caption_agent() at full width (13B
     LLaMA nf4, ViT-L/14-336), one caption_batch of two images."""
@@ -684,22 +911,32 @@ def main() -> int:
         print_ptxas(name, _build.build_log.get(name, ""))
 
     attn = check_attention(torch)
+    packed = check_attention_packed(torch)
+    variants = check_attention_variants(torch)
     stats, apply_ = check_group_norm(torch)
-    bad = [r for r in attn + stats + apply_ if not r["ok"]]
+    bad = [r for r in attn + packed + variants + stats + apply_ if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
 
-    counts, unet, (args, kwargs) = run_restore(torch)
-    profile_call(torch, "profile", unet, args, kwargs)
-    del unet, args, kwargs
+    pipe = build_restore(torch)
+    counts, (args, kwargs) = run_restore(torch, pipe, packed=False)
+    with attention_path(False):
+        profile_call(torch, "profile", pipe.unet, args, kwargs)
+    packed_counts, (args, kwargs) = run_restore(torch, pipe, packed=True)
+    with attention_path(True):
+        profile_call(torch, "profile_packed", pipe.unet, args, kwargs)
+    check_path_parity(torch, pipe.unet, args, kwargs)
+    del pipe, args, kwargs
     gc.collect()
     torch.cuda.empty_cache()
+    bench_counts = run_bench(torch)
 
     nf4 = check_nf4(torch)
     bad = [r for r in nf4 if not r["ok"]]
     if bad:
         fail(f"{len(bad)} NF4 kernel checks out of tolerance: {bad}")
     check_caption_small(torch)
+    check_llama_prefill(torch)
     caption_counts = run_caption(torch)
 
     def entry(name, row, source, replaces, launches=counts):
@@ -723,6 +960,14 @@ def main() -> int:
               next(r for r in nf4 if (r["m"], r["in_f"], r["out_f"]) == NF4_REPORT),
               "faithdiff_tpu_torch/csrc/nf4_matmul.cu",
               "faithdiff_tpu/ops/nf4_matmul.py:73", caption_counts),
+        entry("flash_attention_bsnd_fwd", packed[PACKED_REPORT],
+              "faithdiff_tpu_torch/csrc/flash_attention.cu",
+              "faithdiff_tpu/ops/attention.py:101", packed_counts),
+        entry("attention_variant_fwd",
+              next(r for r in variants
+                   if (tuple(r["shape"]), r["base2"], r["block_k"]) == VARIANT_REPORT),
+              "faithdiff_tpu_torch/csrc/flash_attention.cu",
+              "scripts/bench_attention_variants.py:36", bench_counts),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """faithdiff_tpu_torch: the PyTorch / CUDA port of `faithdiff_tpu` for an
 NVIDIA H100.
 
-- ``faithdiff_tpu_torch.ops``        attention, GroupNorm, NF4 dequant-matmul;
+- ``faithdiff_tpu_torch.ops``        attention (BHSD and packed), GroupNorm,
+                                     NF4 dequant-matmul, attention variants;
                                      the CUDA kernels (``csrc/``) and their
                                      plain versions
 - ``faithdiff_tpu_torch.models``     SDXL UNet + FaithDiff fusion, VAE,
@@ -13,6 +14,7 @@ NVIDIA H100.
                                      caption agent
 - ``faithdiff_tpu_torch.utils``      color fix, image helpers, int8 / NF4
                                      quantisation, weight carry
+- ``faithdiff_tpu_torch.scripts``    the attention-variant benchmark
 
 It imports torch, numpy and the standard library only. Entry points run on
 the CUDA card unless the caller passes ``device="cpu"``.

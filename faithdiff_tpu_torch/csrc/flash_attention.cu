@@ -1,230 +1,172 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in and out, head dim 64.
+// Flash-attention forward for Hopper (sm_90a), bf16 in and out, head dim
+// 64 or 128, in two layouts. The tile body is in flash_tile.cuh.
 //
-// Replaces: faithdiff_tpu/ops/attention.py::_flash_kernel (the Pallas TPU
-// kernel launched by _flash_attention_fwd_impl), which runs every UNet
-// self-attention of the restore path ([2T,10,4096,64] and [2T,20,1024,64]
-// at a 1024^2 tile, T tiles per UNet call).
+// Replaces:
+// - faithdiff_tpu/ops/attention.py::_flash_kernel (launched by
+//   _flash_attention_fwd_impl) with flash_fwd_kernel over contiguous
+//   [BH, S, d] rows: every UNet self-attention of the restore path
+//   ([2T,10,4096,64] and [2T,20,1024,64] at a 1024^2 tile, T tiles per UNet
+//   call) and the LLaMA-13B causal prefill at >= 1024 tokens ([B,40,S,128]).
+// - scripts/bench_attention_variants.py::kernel (launched by its `run`), the
+//   benchmark copy of the TPU flash kernel with a `base2` switch and a
+//   `block_k` loop, with the same flash_fwd_kernel instantiated for base e
+//   and base 2 at block_k 64 and 128 (fd_attention_variant_fwd: [bh, s, 64]
+//   bf16, non-causal; the card's tile depths, not the TPU's 256-2048).
+// - faithdiff_tpu/ops/attention.py::_flash_kernel_bsnd (launched by
+//   _flash_attention_bsnd_impl) with flash_bsnd_fwd_kernel over the packed
+//   [b, s, n*d] projection outputs (the UNet's Attention under
+//   FAITHDIFF_BSND_ATTN=1: [2T,4096,640] with 10 heads, [2T,1024,1280] with
+//   20). Row r of head h is read at base + r * row_stride + h * d: at d=64
+//   each row is 128 contiguous bytes, so loads stay coalesced 16-byte
+//   vectors, and the output is written packed, in place of the head
+//   transposes that the TPU kernel was built to avoid. Blocks run in
+//   parallel on the card, so the TPU kernel's kv grid axis (softmax state
+//   carried in scratch across grid steps) becomes the tile body's loop.
 //
-// What it computes: o = softmax(q k^T * scale) v over [BH, S, 64], with the
-// TPU kernel's arithmetic: scale * log2(e) folded into q once (rounded back
-// to bf16), online softmax in base 2, fp32 running max / sum / accumulator,
-// p cast to bf16 before p.v, masked scores at -0.7 * FLT_MAX, and a causal
-// mask aligned top-left (q_idx >= k_idx; the caller allows it only for
-// q_len == kv_len, where both alignments agree).
+// What it computes: o = softmax(q k^T * scale) v with the TPU kernels'
+// arithmetic (base 2, scale * log2 e folded into q; see flash_tile.cuh).
 //
 // What bounds it on the card: operations. At the UNet shapes it does
-// 4*BH*S^2*64 flops against 4*BH*S*64*2 bytes of q/k/v/o, about 1,000
-// flops per byte (S=4096), far above the H100's ~295 flop/byte ridge.
+// 4*BH*S^2*d flops against 4*BH*S*d*2 bytes of q/k/v/o, about 1,000 flops
+// per byte (S=4096, d=64), far above the H100's ~295 flop/byte ridge.
 //
-// Design (simple first): one block of 4 warps per (b*h, 64-row q tile). The
-// block loops over 64-row K/V tiles staged in shared memory; each warp owns
-// 16 q rows. Q.K^T and P.V run on the tensor cores through WMMA 16x16x16
-// bf16 fragments with fp32 accumulation. The score tile and the output
-// accumulator live in shared memory, so the row-wise softmax and the
-// rescale by alpha are plain per-row loops that need no fragment layout.
-// No cp.async / TMA / wgmma yet: loads are not overlapped with compute, and
-// that is what a later version changes first.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-
-#include <cfloat>
-#include <cstdint>
+// Shared memory: 72 KB a block at d=64 (3 blocks an SM), 110.5 KB at d=128
+// (2 blocks an SM), 112.5 KB for the d=64 variants at block_k 128 (2 blocks
+// an SM); each (head dim, block_k) is its own instantiation, so d=128 does
+// not lower d=64's occupancy.
+#include "flash_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using fd_flash::bf16;
+using fd_flash::kBlockQ;
+using fd_flash::kThreads;
 
-constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kHeadDim = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-// padded row strides: 144-byte bf16 rows and 272-byte fp32 rows keep every
-// 16-byte vector store and every 32-byte WMMA tile pointer aligned while
-// shifting successive rows across shared-memory banks
-constexpr int kLdh = kHeadDim + 8;
-constexpr int kLdf = kBlockK + 4;
-constexpr float kMask = -0.7f * FLT_MAX;
 
-constexpr int kTileH = kBlockQ * kLdh;     // bf16 elements per 64-row tile
-constexpr int kTileF = kBlockQ * kLdf;     // fp32 elements per 64-row tile
-constexpr size_t kSmemBytes =
-    4 * kTileH * sizeof(bf16)              // Q, K, V, P
-    + 2 * kTileF * sizeof(float)           // S, O
-    + 2 * kBlockQ * sizeof(float);         // running max m, running sum l
-
+// `scale` is the softmax scale times log2 e when kBase2, the softmax scale
+// otherwise (see attend_tile).
+template <int kHeadDim, int kBlockKV, bool kBase2>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 int q_len, int kv_len, float q_scale, int causal) {
+                 int q_len, int kv_len, float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + kTileH;
-  bf16* s_v = s_k + kTileH;
-  bf16* s_p = s_v + kTileH;
-  float* s_s = reinterpret_cast<float*>(s_p + kTileH);
-  float* s_o = s_s + kTileF;
-  float* s_m = s_o + kTileF;
-  float* s_l = s_m + kBlockQ;
+  const int64_t bh = blockIdx.y;
+  const int64_t q_off = bh * q_len * kHeadDim, kv_off = bh * kv_len * kHeadDim;
+  fd_flash::attend_tile<kHeadDim, kBlockKV, kBase2>(
+      q + q_off, k + kv_off, v + kv_off, o + q_off, kHeadDim, kHeadDim,
+      kHeadDim, kHeadDim, blockIdx.x * kBlockQ, q_len, kv_len, scale,
+      causal != 0, smem);
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const bf16* qb = q + static_cast<size_t>(bh) * q_len * kHeadDim;
-  const bf16* kb = k + static_cast<size_t>(bh) * kv_len * kHeadDim;
-  const bf16* vb = v + static_cast<size_t>(bh) * kv_len * kHeadDim;
-  bf16* ob = o + static_cast<size_t>(bh) * q_len * kHeadDim;
+// q [b, q_len, heads*d], k/v [b, kv_len, heads*d], each with its own batch
+// and row strides (elements); o is contiguous [b, q_len, heads*d].
+template <int kHeadDim>
+__global__ void __launch_bounds__(kThreads)
+flash_bsnd_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      int heads, int q_len, int kv_len,
+                      int64_t q_batch, int64_t q_row, int64_t k_batch,
+                      int64_t k_row, int64_t v_batch, int64_t v_row,
+                      float q_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int64_t b = blockIdx.y / heads;
+  const int64_t col = static_cast<int64_t>(blockIdx.y % heads) * kHeadDim;
+  const int64_t o_row = static_cast<int64_t>(heads) * kHeadDim;
+  fd_flash::attend_tile<kHeadDim, kBlockK, true>(
+      q + b * q_batch + col, k + b * k_batch + col, v + b * v_batch + col,
+      o + b * q_len * o_row + col, q_row, k_row, v_row, o_row,
+      blockIdx.x * kBlockQ, q_len, kv_len, q_scale, false, smem);
+}
 
-  constexpr int kVecPerRow = kHeadDim / 8;   // 16-byte vectors per row
-  // stage q * scale * log2(e), rounded to bf16 as the TPU kernel does
-  for (int idx = tid; idx < kBlockQ * kVecPerRow; idx += kThreads) {
-    const int r = idx / kVecPerRow;
-    const int c8 = (idx % kVecPerRow) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q0 + r < q_len)
-      raw = *reinterpret_cast<const uint4*>(qb + static_cast<size_t>(q0 + r) * kHeadDim + c8);
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * q_scale);
-    *reinterpret_cast<uint4*>(s_q + r * kLdh + c8) = raw;
-  }
-  for (int idx = tid; idx < kTileF; idx += kThreads) s_o[idx] = 0.f;
-  if (tid < kBlockQ) {
-    s_m[tid] = kMask;
-    s_l[tid] = 0.f;
-  }
+template <int kHeadDim, int kBlockKV = kBlockK, bool kBase2 = true>
+cudaError_t launch_bhsd(const void* q, const void* k, const void* v, void* o,
+                        int bh, int q_len, int kv_len, float scale,
+                        int causal, cudaStream_t stream) {
+  const auto kernel = flash_fwd_kernel<kHeadDim, kBlockKV, kBase2>;
+  constexpr size_t smem = fd_flash::Layout<kHeadDim, kBlockKV>::kSmemBytes;
+  cudaError_t err = fd_flash::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q_len + kBlockQ - 1) / kBlockQ, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), q_len, kv_len,
+      scale, causal);
+  return cudaGetLastError();
+}
 
-  int n_tiles = (kv_len + kBlockK - 1) / kBlockK;
-  if (causal) {
-    // tiles wholly above the diagonal contribute nothing: skip them
-    n_tiles = min(n_tiles, (q0 + kBlockQ + kBlockK - 1) / kBlockK);
-  }
-  const int wr = warp * 16;   // first row of this warp's 16-row slab
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();   // the previous tile's K/V are no longer read
-    for (int idx = tid; idx < kBlockK * kVecPerRow; idx += kThreads) {
-      const int r = idx / kVecPerRow;
-      const int c8 = (idx % kVecPerRow) * 8;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (k0 + r < kv_len) {
-        const size_t off = static_cast<size_t>(k0 + r) * kHeadDim + c8;
-        kr = *reinterpret_cast<const uint4*>(kb + off);
-        vr = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      *reinterpret_cast<uint4*>(s_k + r * kLdh + c8) = kr;
-      *reinterpret_cast<uint4*>(s_v + r * kLdh + c8) = vr;
-    }
-    __syncthreads();
-
-    // S = (q * scale * log2e) K^T for this warp's 16 rows
-#pragma unroll
-    for (int n = 0; n < kBlockK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, s_q + wr * kLdh + kk * 16, kLdh);
-        wmma::load_matrix_sync(b, s_k + n * 16 * kLdh + kk * 16, kLdh);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(s_s + wr * kLdf + n * 16, acc, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax in base 2: two lanes per row, 32 columns each
-    {
-      const int r = wr + lane / 2;
-      const int c0 = (lane % 2) * 32;
-      const int qi = q0 + r;
-      float* srow = s_s + r * kLdf + c0;
-      float mx = kMask;
-      for (int c = 0; c < 32; ++c) {
-        const int kj = k0 + c0 + c;
-        float s = srow[c];
-        if (kj >= kv_len || (causal && kj > qi)) s = kMask;
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_prev = s_m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = exp2f(m_prev - m_new);
-      float sum = 0.f;
-      bf16* prow = s_p + r * kLdh + c0;
-      for (int c = 0; c < 32; ++c) {
-        const float p = exp2f(srow[c] - m_new);
-        sum += p;
-        prow[c] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      float* orow = s_o + r * kLdf + c0;
-      for (int c = 0; c < 32; ++c) orow[c] *= alpha;
-      __syncwarp();   // both lanes of a row have read s_m[r]
-      if (lane % 2 == 0) {
-        s_m[r] = m_new;
-        s_l[r] = alpha * s_l[r] + sum;
-      }
-    }
-    __syncwarp();
-
-    // O += P V
-#pragma unroll
-    for (int n = 0; n < kHeadDim / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, s_o + wr * kLdf + n * 16, kLdf, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, s_p + wr * kLdh + kk * 16, kLdh);
-        wmma::load_matrix_sync(b, s_v + kk * 16 * kLdh + n * 16, kLdh);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(s_o + wr * kLdf + n * 16, acc, kLdf, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  // o = acc / l, this warp's 16 rows
-  for (int idx = lane; idx < 16 * kVecPerRow; idx += 32) {
-    const int r = wr + idx / kVecPerRow;
-    const int c8 = (idx % kVecPerRow) * 8;
-    if (q0 + r >= q_len) continue;
-    const float l = s_l[r];
-    uint4 raw;
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(s_o[r * kLdf + c8 + j] / l);
-    *reinterpret_cast<uint4*>(ob + static_cast<size_t>(q0 + r) * kHeadDim + c8) = raw;
-  }
+template <int kHeadDim>
+cudaError_t launch_bsnd(const void* q, const void* k, const void* v, void* o,
+                        int batch, int heads, int q_len, int kv_len,
+                        int64_t q_batch, int64_t q_row, int64_t k_batch,
+                        int64_t k_row, int64_t v_batch, int64_t v_row,
+                        float q_scale, cudaStream_t stream) {
+  constexpr size_t smem = fd_flash::Layout<kHeadDim, kBlockK>::kSmemBytes;
+  cudaError_t err = fd_flash::allow_smem(flash_bsnd_fwd_kernel<kHeadDim>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q_len + kBlockQ - 1) / kBlockQ, batch * heads);
+  flash_bsnd_fwd_kernel<kHeadDim><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), heads, q_len,
+      kv_len, q_batch, q_row, k_batch, k_row, v_batch, v_row, q_scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: contiguous bf16 [bh, len, 64]. Returns a cudaError_t code.
+// q, k, v, o: contiguous bf16 [bh, len, head_dim], head_dim 64 or 128.
+// Returns a cudaError_t code.
 int fd_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                           int bh, int q_len, int kv_len, float q_scale,
-                           int causal, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((q_len + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), q_len, kv_len,
-      q_scale, causal);
-  return static_cast<int>(cudaGetLastError());
+                           int bh, int q_len, int kv_len, int head_dim,
+                           float q_scale, int causal, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return launch_bhsd<64>(q, k, v, o, bh, q_len, kv_len, q_scale, causal, s);
+    case 128: return launch_bhsd<128>(q, k, v, o, bh, q_len, kv_len, q_scale, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Packed layout: q [batch, q_len, heads*head_dim], k/v [batch, kv_len,
+// heads*head_dim], bf16 with unit column stride and the given batch / row
+// strides in elements (multiples of 8, base pointers 16-byte aligned); o
+// contiguous [batch, q_len, heads*head_dim]. Non-causal. Returns a
+// cudaError_t code.
+int fd_flash_attention_bsnd_fwd(const void* q, const void* k, const void* v,
+                                void* o, int batch, int heads, int head_dim,
+                                int q_len, int kv_len, int64_t q_batch,
+                                int64_t q_row, int64_t k_batch, int64_t k_row,
+                                int64_t v_batch, int64_t v_row, float q_scale,
+                                void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch_bsnd<64>(q, k, v, o, batch, heads, q_len, kv_len, q_batch,
+                             q_row, k_batch, k_row, v_batch, v_row, q_scale, s);
+    case 128:
+      return launch_bsnd<128>(q, k, v, o, batch, heads, q_len, kv_len, q_batch,
+                              q_row, k_batch, k_row, v_batch, v_row, q_scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The variant benchmark's kernel: q, k, v, o contiguous bf16 [bh, len, 64],
+// non-causal. `scale` is the softmax scale times log2 e when base2, the
+// softmax scale otherwise. block_k is 64 or 128. Returns a cudaError_t code.
+int fd_attention_variant_fwd(const void* q, const void* k, const void* v,
+                             void* o, int bh, int q_len, int kv_len,
+                             float scale, int base2, int block_k, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (block_k == 64)
+    return base2 ? launch_bhsd<64, 64, true>(q, k, v, o, bh, q_len, kv_len, scale, 0, s)
+                 : launch_bhsd<64, 64, false>(q, k, v, o, bh, q_len, kv_len, scale, 0, s);
+  if (block_k == 128)
+    return base2 ? launch_bhsd<64, 128, true>(q, k, v, o, bh, q_len, kv_len, scale, 0, s)
+                 : launch_bhsd<64, 128, false>(q, k, v, o, bh, q_len, kv_len, scale, 0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* fd_error_string(int code) {

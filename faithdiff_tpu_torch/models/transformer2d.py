@@ -2,19 +2,26 @@
 `faithdiff_tpu/models/transformer2d.py`; linear projection only)."""
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import multi_head_attention
+from ..ops.attention import attention_packed, multi_head_attention
 from .layers import GroupNorm, LayerNorm
+
+# packed [b, s, n*d] attention, as in the JAX package: no head transposes
+# around the attention op. Read by `Attention.forward` at call time.
+_BSND_ATTN = os.environ.get("FAITHDIFF_BSND_ATTN", "0") == "1"
 
 
 class Attention(nn.Module):
     """Multi-head attention with separate bias-free q/k/v projections and a
-    biased `to_out.0`; `cross_attention_dim=None` is self-attention."""
+    biased `to_out.0`; `cross_attention_dim=None` is self-attention. Under
+    `_BSND_ATTN` (and without `upcast`) the projections go to
+    `attention_packed` as they come out of the Linear layers."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  cross_attention_dim: Optional[int] = None,
@@ -31,6 +38,10 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         context = x if context is None else context
+        if _BSND_ATTN and not self.upcast:
+            out = attention_packed(self.to_q(x), self.to_k(context),
+                                   self.to_v(context), self.heads)
+            return self.to_out[0](out.to(x.dtype))
         b, sq, _ = x.shape
         sk = context.shape[1]
 

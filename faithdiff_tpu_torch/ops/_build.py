@@ -3,8 +3,10 @@
 Each source in `faithdiff_tpu_torch/csrc/` is compiled by its own `nvcc`
 into a shared library with a plain C interface, loaded with `ctypes`. All
 sources build in parallel on first use, into `faithdiff_tpu_torch/_build/`
-(listed in `.gitignore`), named by a hash of the source and flags so a
-changed source rebuilds. Nothing is built or loaded at import time.
+(listed in `.gitignore`), named by a hash of the flags, the source and
+the `csrc/` headers it includes, so a changed source or header rebuilds
+what includes it and nothing else. Nothing is built or loaded at import
+time.
 
 `launches` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, so a run can show which kernels it went through.
@@ -15,6 +17,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,9 +46,28 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(name: str) -> list:
+    """`csrc/<name>.cu` and every `csrc/` file it includes, directly or
+    through another header, in the order first reached."""
+    files, todo = [], [name + ".cu"]
+    while todo:
+        fname = todo.pop(0)
+        if fname in files or not os.path.exists(os.path.join(CSRC, fname)):
+            continue
+        files.append(fname)
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return files
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in _sources_of(name):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -9,9 +9,13 @@ import pytest
 import torch
 
 from faithdiff_tpu_torch.ops import _build
-from faithdiff_tpu_torch.ops.attention import (attention_reference,
-                                               flash_attention,
+from faithdiff_tpu_torch.ops.attention import (attention_packed,
+                                               attention_reference,
+                                               einsum_bsnd, flash_attention,
+                                               flash_attention_packed,
                                                multi_head_attention)
+from faithdiff_tpu_torch.ops.attention_variants import (
+    VARIANTS, attention_variant, attention_variant_reference)
 from faithdiff_tpu_torch.ops.groupnorm import group_norm, group_norm_reference
 from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_matmul_kernel,
                                                 nf4_matmul_reference)
@@ -76,6 +80,104 @@ def test_dispatch_sends_long_self_attention_to_the_kernel(cuda):
     multi_head_attention(q, ctx, ctx)            # cross-attention: plain
     torch.cuda.synchronize()
     assert _build.launches["flash_attention_fwd"] == 1
+
+
+@pytest.mark.parametrize("b,h,sq,skv,causal", [
+    (2, 40, 1024, 1024, True),          # the 13B LLaMA prefill
+    (1, 2, 1030, 1030, True), (1, 3, 1000, 1100, False)])
+def test_flash_attention_d128_matches_plain(cuda, b, h, sq, skv, causal):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((b, h, sq, 128), generator=g, device=cuda).bfloat16()
+    k = torch.randn((b, h, skv, 128), generator=g, device=cuda).bfloat16()
+    v = torch.randn((b, h, skv, 128), generator=g, device=cuda).bfloat16()
+    _build.launches.clear()
+    out = flash_attention(q, k, v, 128 ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention_fwd"] == 1
+    assert _within(out, attention_reference(q, k, v, 128 ** -0.5, causal))
+
+
+def _packed(cuda, b, sq, skv, f, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((b, sq, f), generator=g, device=cuda).bfloat16(),
+            torch.randn((b, skv, f), generator=g, device=cuda).bfloat16(),
+            torch.randn((b, skv, f), generator=g, device=cuda).bfloat16())
+
+
+@pytest.mark.parametrize("b,heads,sq,skv,d", [
+    (2, 3, 1024, 1024, 64), (1, 2, 1000, 1100, 64),   # partial q / kv tiles
+    (2, 2, 1030, 77, 64), (1, 2, 1024, 1030, 128), (2, 1, 100, 1000, 128)])
+def test_flash_attention_packed_matches_plain(cuda, b, heads, sq, skv, d):
+    q, k, v = _packed(cuda, b, sq, skv, heads * d, 4)
+    _build.launches.clear()
+    out = flash_attention_packed(q, k, v, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention_bsnd_fwd"] == 1
+    assert out.shape == q.shape and out.is_contiguous()
+    assert _within(out, einsum_bsnd(q, k, v, heads, d ** -0.5))
+
+
+def test_flash_attention_packed_takes_column_slices(cuda):
+    """q/k/v as column slices of one fused [b, s, 3f] projection: packed
+    rows with a row stride of 3f."""
+    qkv = _packed(cuda, 2, 1024, 1024, 3 * 128, 5)[0]
+    q, k, v = qkv.split(128, dim=-1)
+    out = flash_attention_packed(q, k, v, 2, 0.125)
+    assert _within(out, einsum_bsnd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), 2, 0.125))
+
+
+def test_flash_attention_packed_rejects_what_it_does_not_take(cuda):
+    q, k, v = _packed(cuda, 1, 1024, 1024, 128, 6)
+    with pytest.raises(TypeError):
+        flash_attention_packed(q.float(), k.float(), v.float(), 2, 0.125)
+    with pytest.raises(ValueError):         # head dim 32
+        flash_attention_packed(q, k, v, 4, 0.125)
+    with pytest.raises(ValueError):         # heads do not divide n*d
+        flash_attention_packed(q, k, v, 3, 0.125)
+    with pytest.raises(ValueError):         # column stride 2
+        wide = torch.zeros((1, 1024, 256), device=cuda).bfloat16()
+        flash_attention_packed(wide[..., ::2], k, v, 2, 0.125)
+    with pytest.raises(ValueError):         # rows do not start on 16 bytes
+        odd = torch.zeros((1, 1024, 132), device=cuda).bfloat16()
+        flash_attention_packed(odd[..., :128], k, v, 2, 0.125)
+    with pytest.raises(ValueError):         # k and v disagree
+        flash_attention_packed(q, k, v[:, :1000], 2, 0.125)
+    unaligned = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError):
+        flash_attention_packed(unaligned.view(q.shape), k, v, 2, 0.125)
+
+
+def test_attention_packed_sends_long_self_attention_to_the_kernel(cuda):
+    x = _packed(cuda, 2, 4096, 77, 640, 7)
+    _build.launches.clear()
+    attention_packed(x[0], x[0], x[0], 10)      # self-attention: the kernel
+    attention_packed(x[0], x[1], x[2], 10)      # 77-token cross: plain
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"flash_attention_bsnd_fwd": 1}
+
+
+@pytest.mark.parametrize("base2,block_k", VARIANTS)
+def test_attention_variant_matches_plain(cuda, base2, block_k):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn((3, 1030, 64), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    _build.launches.clear()
+    out = attention_variant(q, k, v, 0.125, base2, block_k)
+    torch.cuda.synchronize()
+    assert _build.launches["attention_variant_fwd"] == 1
+    assert _within(out, attention_variant_reference(q, k, v, 0.125, base2))
+
+
+def test_attention_variant_rejects_what_it_does_not_take(cuda):
+    q = torch.randn((2, 1024, 64), device=cuda).bfloat16()
+    with pytest.raises(ValueError):
+        attention_variant(q, q, q, 0.125, True, 256)
+    with pytest.raises(TypeError):
+        attention_variant(q.float(), q.float(), q.float(), 0.125, True, 64)
+    with pytest.raises(ValueError):
+        attention_variant(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                          q[..., :32].contiguous(), 0.125, True, 64)
 
 
 @pytest.mark.parametrize("shape,g,dtype,act,with_add", [

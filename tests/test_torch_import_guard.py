@@ -48,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
         "faithdiff_tpu_torch.ops.groupnorm, faithdiff_tpu_torch.utils.convert, "
         "faithdiff_tpu_torch.utils.color_fix, faithdiff_tpu_torch.captioner, "
         "faithdiff_tpu_torch.captioner.mpt, faithdiff_tpu_torch.ops.nf4_matmul, "
-        "faithdiff_tpu_torch.utils.quantize\n"
+        "faithdiff_tpu_torch.utils.quantize, "
+        "faithdiff_tpu_torch.models.transformer2d, "
+        "faithdiff_tpu_torch.ops.attention_variants, "
+        "faithdiff_tpu_torch.scripts.bench_attention_variants\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

@@ -2,11 +2,15 @@
 against the JAX package's Pallas kernels in interpret mode and its XLA
 references. Inputs come from numpy and go to both sides; fp32 throughout,
 so the tolerances only cover summation order."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from faithdiff_tpu.ops import attention as jax_attention
 from faithdiff_tpu.ops.attention import (_chunked_xla_attention,
                                          _flash_attention_fwd_impl,
                                          _xla_attention)
@@ -15,6 +19,7 @@ from faithdiff_tpu_torch.ops import _build
 from faithdiff_tpu_torch.ops.attention import (attention_reference,
                                                chunked_attention,
                                                flash_attention,
+                                               flash_eligible,
                                                multi_head_attention)
 from faithdiff_tpu_torch.ops.groupnorm import group_norm
 
@@ -93,3 +98,77 @@ def test_group_norm_matches_pallas_interpret(shape, g, eps, act, with_add):
     # package's own fused-vs-reference test allows 1e-5)
     np.testing.assert_allclose(ours.numpy().transpose(0, 2, 3, 1),
                                np.asarray(want), atol=1e-5)
+
+
+def _jax_flash_shapes(monkeypatch):
+    """The table of BHSD shapes JAX's `multi_head_attention` sends to its
+    flash kernel on a TPU, read from its own gate: `_on_tpu` forced true
+    and the three attention bodies replaced by recorders, traced with
+    `jax.eval_shape` (nothing is computed)."""
+    taken = []
+
+    def recorder(name):
+        def body(q, *args, **kwargs):
+            taken.append(name)
+            return q
+        return body
+
+    monkeypatch.setattr(jax_attention, "_on_tpu", lambda: True)
+    monkeypatch.setattr(jax_attention, "_flash_attention", recorder("flash"))
+    monkeypatch.setattr(jax_attention, "_xla_attention", recorder("xla"))
+    monkeypatch.setattr(jax_attention, "_chunked_xla_attention",
+                        recorder("chunked"))
+    table = []
+    # the head dims of the repo's models that reach attention: 64 (UNet,
+    # CLIP) and 128 (LLaMA / MPT prefill); lengths around the gate's edges
+    for d in (64, 128):
+        for sq in (512, 1000, 1024, 1152, 2048, 4096, 8192):
+            for skv in (77, 1024, 1030, 4096, 8192):
+                for causal in (False, True):
+                    if causal and sq != skv:
+                        continue
+                    taken.clear()
+                    q = jax.ShapeDtypeStruct((1, 2, sq, d), jnp.bfloat16)
+                    kv = jax.ShapeDtypeStruct((1, 2, skv, d), jnp.bfloat16)
+                    jax.eval_shape(functools.partial(
+                        jax_attention.multi_head_attention, causal=causal),
+                        q, kv, kv)
+                    table.append(((1, 2, sq, d), (1, 2, skv, d), causal,
+                                  taken == ["flash"]))
+    return table
+
+
+def test_flash_gate_takes_every_shape_jax_sends_to_its_kernel(monkeypatch):
+    """Every shape of the table that JAX sends to `_flash_kernel` goes to
+    the port's flash kernel too, d = 128 (the LLaMA prefill) included; the
+    port also serves lengths that are no multiple of 128 and K/V beyond the
+    TPU's VMEM cap, which its kernel streams."""
+    table = _jax_flash_shapes(monkeypatch)
+    jax_flash = [(qs, ks) for qs, ks, _, flash in table if flash]
+    assert any(qs[-1] == 128 for qs, _ in jax_flash)
+    assert ((1, 2, 1024, 128), (1, 2, 1024, 128)) in jax_flash
+    for qs, ks in jax_flash:
+        assert flash_eligible(torch.empty(qs, device="meta"),
+                              torch.empty(ks, device="meta")), (qs, ks)
+    # below 1024 tokens on either side (cross-attention, CLIP) stays plain
+    for qs, ks, _, _ in table:
+        if min(qs[2], ks[2]) < 1024:
+            assert not flash_eligible(torch.empty(qs, device="meta"),
+                                      torch.empty(ks, device="meta"))
+
+
+def test_library_name_follows_only_the_headers_a_source_includes(
+        monkeypatch, tmp_path):
+    """A header change renames (and so rebuilds) the libraries whose source
+    includes it, directly or through another header, and no other."""
+    (tmp_path / "a.cu").write_text('#include "outer.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("#include <cstdint>\nint b;\n")
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    assert _build._sources_of("a") == ["a.cu", "outer.cuh", "inner.cuh"]
+    assert _build._sources_of("b") == ["b.cu"]
+    before = {n: _build._lib_path(n) for n in "ab"}
+    (tmp_path / "inner.cuh").write_text("#pragma once\n// changed\n")
+    assert _build._lib_path("a") != before["a"]
+    assert _build._lib_path("b") == before["b"]
