@@ -11,6 +11,10 @@
    PyTorch versions on the card, in bf16 at their paths' shapes, and times
    kernel, plain version, a PyTorch library call that computes the same
    function (a yardstick only) and the card's bound for the same work.
+   The flash rows' kernel and library times come from CUDA graphs, with
+   the achieved TFLOP/s, the time over the bound and the wrapper's host
+   cost beside them. Also holds the flash kernels at ragged and short
+   lengths and on column-slice operands (correctness only).
 4. Runs a full-width restore (default SDXL UNet / VAE / denoise-encoder
    configs, bf16, seeded random weights) of a 1024x1536 uint8 image: two
    128^2 latent tiles, 20 Euler steps, guidance 5, start_point "lr",
@@ -152,6 +156,55 @@ def graph_ms(torch, fn, launches: int = 20, replays: int = 10) -> float:
     return time_ms(torch, graph.replay, replays, warmup=1) / launches
 
 
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host time of one call of `fn`, in microseconds: the wall time of a
+    loop of calls short enough not to fill the launch queue, over its
+    length."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def flash_timing(torch, flops, nbytes, kernel, plain, library) -> dict:
+    """The timing keys of a flash row: kernel and library call from CUDA
+    graphs (device time; at under ~0.2 ms a loop of wrapper calls measures
+    the host), the plain version from a loop of calls, the bound, and the
+    wrapper's host cost."""
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    ms = graph_ms(torch, kernel)
+    return dict(ms=ms, plain_ms=time_ms(torch, plain, 3, 1),
+                library_ms=graph_ms(torch, library), bound_ms=b_ms,
+                bound_by=b_by, tflops=flops / ms / 1e9, ms_over_bound=ms / b_ms,
+                wrapper_host_us=host_us(torch, kernel))
+
+
+def entry_host_us(torch, q, k, v, scale: float, causal: bool) -> float:
+    """Host time of the flash kernel's C entry point alone (four tensor-map
+    encodes and the launch), without the Python wrapper around it. The
+    wrapper has been called before, so the function's argtypes are set."""
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops import attention as A
+
+    out = torch.empty_like(q)
+    fn = _build.load("flash_attention").fd_flash_attention_fwd
+    geometry = A._geometry_argument((
+        A.bhsd_geometry(q.shape, A.GROUP_ROWS), A.bhsd_geometry(k.shape, A.BLOCK_K),
+        A.bhsd_geometry(v.shape, A.BLOCK_K), A.bhsd_geometry(out.shape, A.GROUP_ROWS)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geometry,
+            q.shape[-1], scale * A.LOG2E, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        if fn(*args):
+            fail("fd_flash_attention_fwd returned an error")
+
+    return host_us(torch, call)
+
+
 def print_ptxas(source: str, log: str) -> None:
     """One line per compiled kernel from `nvcc -Xptxas -v`: its mangled
     name, registers and spills."""
@@ -196,18 +249,17 @@ def check_attention(torch):
         # other points than in the plain version: allow a few bf16 steps
         tol = 1e-2 + 8e-3 * ref.float().abs()
         ok = bool((err <= tol).all()) and bool(torch.isfinite(out).all())
-        iters = 20 if s >= 4096 else 50
         pairs = s * (s + 1) / 2 if causal else s * s
-        b_ms, b_by = bound(4 * b * h * d * pairs, 4 * b * h * s * d * 2,
-                           PEAK_BF16_FLOPS)
         row = dict(
             shape=list(shape), causal=causal, max_abs_err=float(err.max()),
             tol="1e-2 + 8e-3*|ref|", ok=ok,
-            ms=time_ms(torch, lambda: flash_attention(q, k, v, scale, causal), iters),
-            plain_ms=time_ms(torch, lambda: attention_reference(q, k, v, scale, causal), 3, 1),
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, scale=scale), iters),
-            bound_ms=b_ms, bound_by=b_by)
+            **flash_timing(
+                torch, 4 * b * h * d * pairs, 4 * b * h * s * d * 2,
+                lambda: flash_attention(q, k, v, scale, causal),
+                lambda: attention_reference(q, k, v, scale, causal),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=scale)),
+            entry_host_us=entry_host_us(torch, q, k, v, scale, causal))
         print("attention", json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, out, ref, err, tol
@@ -240,21 +292,82 @@ def check_attention_packed(torch):
         tol = 1e-2 + 8e-3 * ref.float().abs()
         ok = bool((err <= tol).all()) and bool(torch.isfinite(out).all())
         qh, kh, vh = (t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v))
-        iters = 20 if s >= 4096 else 50
-        b_ms, b_by = bound(4 * b * heads * d * s * s, 4 * b * s * f * 2,
-                           PEAK_BF16_FLOPS)
         row = dict(
             shape=list(shape), heads=heads, max_abs_err=float(err.max()),
             tol="1e-2 + 8e-3*|ref|", ok=ok,
-            ms=time_ms(torch, lambda: flash_attention_packed(q, k, v, heads, scale), iters),
-            plain_ms=time_ms(torch, lambda: einsum_bsnd(q, k, v, heads, scale), 3, 1),
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, scale=scale), iters),
-            bound_ms=b_ms, bound_by=b_by)
+            **flash_timing(
+                torch, 4 * b * heads * d * s * s, 4 * b * s * f * 2,
+                lambda: flash_attention_packed(q, k, v, heads, scale),
+                lambda: einsum_bsnd(q, k, v, heads, scale),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)))
         print("attention_packed", json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, qh, kh, vh, out, ref, err, tol
         torch.cuda.empty_cache()
+    return rows
+
+
+def check_attention_ragged(torch):
+    """Correctness only: the flash kernels where tiles are partial. q and
+    kv lengths that are no multiple of the 128-row block or the 128-row
+    K/V tile, non-causal and causal, at both head dims; 70,000 planes of a
+    few rows; packed operands that are column slices of fused projections,
+    with a 77-row K/V; q shorter than one 64-row group; and the BHSD kernel
+    against the plain walk of its own tile schedule
+    (`flash_attention_tiled`)."""
+    from faithdiff_tpu_torch.ops.attention import (attention_reference,
+                                                   einsum_bsnd,
+                                                   flash_attention,
+                                                   flash_attention_packed,
+                                                   flash_attention_tiled)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = []
+
+    def hold(what, out, ref):
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        # as for the full tiles: q and p are rounded to bf16 at other points
+        ok = (bool((err <= 1e-2 + 8e-3 * ref.float().abs()).all())
+              and bool(torch.isfinite(out).all()))
+        row = dict(case=what, max_abs_err=float(err.max()),
+                   tol="1e-2 + 8e-3*|ref|", ok=ok)
+        print("attention_ragged", json.dumps(row), flush=True)
+        rows.append(row)
+
+    # more planes than a grid's y extent holds: work items are dealt from
+    # one linear index
+    q, k, v = randn(1, 70000, 8, 64), randn(1, 70000, 16, 64), randn(1, 70000, 16, 64)
+    hold("bhsd [1, 70000, 8, 16, 64] causal=False",
+         flash_attention(q, k, v, 0.125), attention_reference(q, k, v, 0.125))
+    for d in (64, 128):
+        scale = d ** -0.5
+        for (b, h, sq, skv), causal in (((2, 3, 1000, 1100), False),
+                                        ((1, 3, 1030, 1030), True)):
+            q, k, v = randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d)
+            out = flash_attention(q, k, v, scale, causal)
+            hold(f"bhsd {[b, h, sq, skv, d]} causal={causal}", out,
+                 attention_reference(q, k, v, scale, causal))
+            if causal:
+                hold(f"bhsd {[b, h, sq, skv, d]} causal against its tile walk",
+                     out, flash_attention_tiled(q, k, v, scale, True))
+        # q a column slice of a fused [b, s, 3f] projection, k and v of a
+        # [b, 77, 2f] one; then q shorter than one group of rows
+        heads = 2
+        f = heads * d
+        for sq, skv in ((1030, 77), (50, 1100)):
+            q = randn(2, sq, 3 * f)[..., f:2 * f]
+            k, v = randn(2, skv, 2 * f).split(f, dim=-1)
+            out = flash_attention_packed(q, k, v, heads, scale)
+            if not out.is_contiguous():
+                fail("packed output is not contiguous")
+            hold(f"packed column slices {[2, sq, skv, f]} heads={heads}", out,
+                 einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(),
+                             heads, scale))
     return rows
 
 
@@ -273,11 +386,6 @@ def check_attention_variants(torch):
         q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         scale = d ** -0.5
-        iters = 20 if s >= 4096 else 50
-        b_ms, b_by = bound(4 * bh * d * s * s, 4 * bh * s * d * 2,
-                           PEAK_BF16_FLOPS)
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], scale=scale), iters)
         for base2, bk in VARIANTS:
             out = attention_variant(q, k, v, scale, base2, bk)
             torch.cuda.synchronize()
@@ -290,11 +398,12 @@ def check_attention_variants(torch):
             row = dict(
                 shape=[bh, s, d], base2=base2, block_k=bk,
                 max_abs_err=float(err.max()), tol="1e-2 + 8e-3*|ref|", ok=ok,
-                ms=time_ms(torch, lambda: attention_variant(
-                    q, k, v, scale, base2, bk), iters),
-                plain_ms=time_ms(torch, lambda: attention_variant_reference(
-                    q, k, v, scale, base2), 3, 1),
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                **flash_timing(
+                    torch, 4 * bh * d * s * s, 4 * bh * s * d * 2,
+                    lambda: attention_variant(q, k, v, scale, base2, bk),
+                    lambda: attention_variant_reference(q, k, v, scale, base2),
+                    lambda: F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], scale=scale)))
             print("attention_variant", json.dumps(row), flush=True)
             rows.append(row)
             del out, ref, err, tol
@@ -912,9 +1021,11 @@ def main() -> int:
 
     attn = check_attention(torch)
     packed = check_attention_packed(torch)
+    ragged = check_attention_ragged(torch)
     variants = check_attention_variants(torch)
     stats, apply_ = check_group_norm(torch)
-    bad = [r for r in attn + packed + variants + stats + apply_ if not r["ok"]]
+    bad = [r for r in attn + packed + ragged + variants + stats + apply_
+           if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
 

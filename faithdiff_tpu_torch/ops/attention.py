@@ -12,8 +12,9 @@ goes through the chunked online softmax.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +31,13 @@ _MIN_FLASH_SEQ = 1024
 _FLASH_HEAD_DIMS = (64, 128)
 # score-matrix size above which the plain path becomes memory-hostile
 _MAX_PLAIN_SCORE_ELEMS = 64 * 1024 * 1024
+# the flash kernels' tiles (`csrc/flash_tile.cuh`, `csrc/flash_attention.cu`):
+# a block owns BLOCK_Q q rows, GROUP_ROWS a consumer warpgroup, and walks
+# K/V in tiles of BLOCK_K rows; TMA moves 64-column (128-byte) panels
+BLOCK_Q = 128
+GROUP_ROWS = 64
+BLOCK_K = 128
+PANEL_COLS = 64
 
 
 def attention_reference(q, k, v, scale: float, causal: bool = False):
@@ -73,8 +81,8 @@ def chunked_attention(q, k, v, scale: float, chunk: int = 1024):
 
 def _check_kernel_inputs(what: str, q, tensors) -> None:
     """Raise on what the flash kernels do not take: another device, another
-    dtype than bf16, or data that does not start on 16 bytes (rows move as
-    16-byte vectors)."""
+    dtype than bf16, or data that does not start on 16 bytes (a TMA tensor
+    map's base address must)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     for name, t in tensors:
@@ -84,6 +92,70 @@ def _check_kernel_inputs(what: str, q, tensors) -> None:
             raise TypeError(f"{what}: {name} is {t.dtype}, kernel takes bfloat16")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
+class TmaGeometry(NamedTuple):
+    """One operand as its 4-D TMA tensor map sees it: `dims` = (columns of
+    a head, heads, rows, batches), innermost first; `strides` = the byte
+    strides of heads, rows and batches; `box` = the tile one load or store
+    moves, in elements of each dim."""
+    dims: tuple
+    strides: tuple
+    box: tuple
+
+
+def _tma_geometry(d, heads, rows, batches, head_stride, row_stride,
+                  batch_stride, box_rows) -> TmaGeometry:
+    """Strides in bf16 elements. A dimension of extent 1 is given the
+    stride of a contiguous tensor (its own never enters an address); every
+    other one must be a positive multiple of 16 bytes, as TMA demands."""
+    if d % PANEL_COLS:
+        raise ValueError(f"head dim {d} is not a multiple of {PANEL_COLS}")
+    strides = []
+    for extent, stride, dense in ((heads, head_stride, d),
+                                  (rows, row_stride, heads * d),
+                                  (batches, batch_stride, rows * heads * d)):
+        if extent == 1:
+            stride = dense
+        if stride <= 0 or stride % 8 or 2 * stride >= 1 << 40:
+            raise ValueError(f"stride {stride} of an extent of {extent} is not a "
+                             "positive multiple of 8 elements below 2^39")
+        strides.append(2 * stride)
+    dims = (d, heads, rows, batches)
+    if min(dims) < 1 or max(dims) > 1 << 32 or not 1 <= box_rows <= 256:
+        raise ValueError(f"dims {dims}, box rows {box_rows}")
+    return TmaGeometry(dims, tuple(strides), (PANEL_COLS, 1, box_rows, 1))
+
+
+@functools.lru_cache(maxsize=256)
+def bhsd_geometry(shape, box_rows: int) -> TmaGeometry:
+    """A contiguous ``[B, H, S, d]`` (or ``[BH, S, d]``) tensor: B*H planes
+    of S rows, no head dimension inside a plane."""
+    *planes, rows, d = shape
+    return _tma_geometry(d, 1, rows, math.prod(planes), d, d, rows * d, box_rows)
+
+
+@functools.lru_cache(maxsize=256)
+def packed_geometry(shape, stride, heads: int, box_rows: int) -> TmaGeometry:
+    """A packed ``[b, s, n*d]`` tensor with element strides `stride` (unit
+    column stride): head h of row r starts h*d elements into the row."""
+    b, rows, f = shape
+    batch_stride, row_stride, col_stride = stride
+    if col_stride != 1 or f % heads:
+        raise ValueError(f"packed rows of {f} columns, {heads} heads, column "
+                         f"stride {col_stride}")
+    d = f // heads
+    return _tma_geometry(d, heads, rows, b, d, row_stride, batch_stride, box_rows)
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry_argument(geometries: tuple):
+    """q, k, v, o geometries as the C entry points read them: per operand
+    4 dims, 3 byte strides and 4 box extents, all uint64. The UNet asks
+    for the same few shapes 70 times a call, so the array is kept (the
+    entry points only read it)."""
+    flat = [x for g in geometries for part in g for x in part]
+    return (ctypes.c_uint64 * len(flat))(*flat)
 
 
 def _launch(lib, fn_name: str, argtypes, args, device) -> None:
@@ -118,15 +190,85 @@ def flash_attention(q, k, v, scale: float, causal: bool = False):
         # the TPU kernel masks top-left (q_idx >= k_idx) while its reference
         # masks bottom-right; they agree only for square score matrices
         raise ValueError("flash_attention: causal needs q_len == kv_len")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: batch*heads {b * h} > 65535")
     out = torch.empty_like(q)
+    geometry = _geometry_argument((
+        bhsd_geometry(q.shape, GROUP_ROWS), bhsd_geometry(k.shape, BLOCK_K),
+        bhsd_geometry(v.shape, BLOCK_K), bhsd_geometry(out.shape, GROUP_ROWS)))
     _launch(_build.load("flash_attention"), "fd_flash_attention_fwd",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b * h, q_len, kv_len, d, scale * LOG2E, int(causal)), q.device)
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p],
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geometry,
+             d, scale * LOG2E, int(causal)), q.device)
     _build.launches["flash_attention_fwd"] += 1
+    return out
+
+
+def kv_tiles(q0: int, kv_len: int, causal: bool, block_q: int = BLOCK_Q,
+             block_k: int = BLOCK_K) -> int:
+    """K/V tiles the kernel's block that starts at q row `q0` visits: all
+    of them, or under the causal mask those that hold a column <= the
+    block's last row (`kv_tiles` in `csrc/flash_tile.cuh`)."""
+    every = -(-kv_len // block_k)
+    if not causal:
+        return every
+    return min(every, (q0 + block_q + block_k - 1) // block_k)
+
+
+def flash_attention_tiled(q, k, v, scale: float, causal: bool = False, *,
+                          base2: bool = True, block_q: int = BLOCK_Q,
+                          block_k: int = BLOCK_K, visited=None):
+    """The flash kernels' schedule in plain PyTorch, for tests: ``[B, H, S,
+    d]`` operands, blocks of `block_q` q rows split into groups of
+    `GROUP_ROWS`, each walking the K/V tiles of `block_k` rows that
+    `kv_tiles` bounds with the kernel's online softmax. In base 2 q takes
+    scale * log2 e and is rounded to its dtype; in base e each fp32 score
+    is scaled. p enters the sum in fp32 and p.v in v's dtype; columns past
+    kv_len and above the causal diagonal (top-left) score `-0.7 * FLT_MAX`;
+    a group skips a tile wholly above its rows. `visited`, a list, gets
+    one ``(q0, k0)`` per tile a block walks."""
+    q_len, kv_len = q.shape[2], k.shape[2]
+    exp = torch.exp2 if base2 else torch.exp
+    if base2:
+        qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    else:
+        qs = q.float()
+    out = torch.empty_like(q)
+    for q0 in range(0, q_len, block_q):
+        n_tiles = kv_tiles(q0, kv_len, causal, block_q, block_k)
+        if visited is not None:
+            visited += [(q0, t * block_k) for t in range(n_tiles)]
+        for g0 in range(q0, min(q0 + block_q, q_len), GROUP_ROWS):
+            rows = torch.arange(g0, min(g0 + GROUP_ROWS, q_len), device=q.device)
+            qg = qs[:, :, rows]
+            acc = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+            m = torch.full(qg.shape[:-1] + (1,), DEFAULT_MASK_VALUE,
+                           dtype=torch.float32, device=q.device)
+            l = torch.zeros_like(m)
+            for t in range(n_tiles):
+                k0 = t * block_k
+                if causal and k0 > g0 + GROUP_ROWS - 1:
+                    continue
+                cols = torch.arange(k0, k0 + block_k, device=q.device)
+                live = cols < kv_len
+                kt = k[:, :, k0:k0 + block_k].float()
+                vt = v[:, :, k0:k0 + block_k]
+                pad = block_k - kt.shape[2]       # TMA zero-fills a partial tile
+                kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+                vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+                s = torch.matmul(qg, kt.transpose(-1, -2))
+                if not base2:
+                    s = s * scale
+                keep = live[None, :]
+                if causal:
+                    keep = keep & (cols[None, :] <= rows[:, None])
+                s = torch.where(keep, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = exp(s - m_new)
+                alpha = exp(m - m_new)
+                l = alpha * l + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vt.float())
+                m = m_new
+            out[:, :, rows] = (acc / l).to(q.dtype)
     return out
 
 
@@ -180,23 +322,21 @@ def einsum_bsnd(q, k, v, heads: int, scale: float):
     return out.to(q.dtype).reshape(b, sq, f)
 
 
-def _packed_strides(name: str, t, f: int):
-    """(batch stride, row stride) of a packed ``[b, s, f]`` operand, in
-    elements. The kernel reads each head's d columns of a row as 16-byte
-    vectors, so it needs unit column stride and batch / row strides that
-    are multiples of 8 bf16; a row stride >= f lets q/k/v be column slices
-    of one fused projection."""
+def _check_packed_strides(name: str, t, f: int) -> None:
+    """Raise unless `t` is a packed ``[b, s, f]`` operand as the kernel's
+    tensor maps can address it: unit column stride, and batch / row strides
+    that are multiples of 8 bf16 (16 bytes); a row stride >= f lets q/k/v
+    be column slices of one fused projection."""
     sb, sr, sc = t.stride()
     if sc != 1 or sr < f or sr % 8 or sb % 8:
         raise ValueError(f"flash_attention_packed: {name} strides {t.stride()} "
                          f"are not packed rows of {f} elements")
-    return sb, sr
 
 
 def flash_attention_packed(q, k, v, heads: int, scale: float):
     """Packed-layout flash attention, non-causal: q ``[b, sq, n*d]``, k/v
     ``[b, skv, n*d]`` -> ``[b, sq, n*d]``. A CUDA tensor launches the kernel
-    (bf16, d = 64 or 128, packed rows as `_packed_strides` describes) and
+    (bf16, d = 64 or 128, packed rows as `_check_packed_strides` describes) and
     raises on anything it does not take; a CPU tensor computes
     `einsum_bsnd`."""
     if q.device.type == "cpu":
@@ -215,16 +355,18 @@ def flash_attention_packed(q, k, v, heads: int, scale: float):
     if d not in _FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention_packed: head dim {d}, kernel takes "
                          f"{_FLASH_HEAD_DIMS}")
-    if b * heads > 65535:
-        raise ValueError(f"flash_attention_packed: batch*heads {b * heads} > 65535")
-    strides = [s for name, t in (("q", q), ("k", k), ("v", v))
-               for s in _packed_strides(name, t, f)]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_packed_strides(name, t, f)
     out = torch.empty((b, sq, f), dtype=q.dtype, device=q.device)
+    geometry = _geometry_argument(tuple(
+        packed_geometry(t.shape, t.stride(), heads, rows)
+        for t, rows in ((q, GROUP_ROWS), (k, BLOCK_K), (v, BLOCK_K),
+                        (out, GROUP_ROWS))))
     _launch(_build.load("flash_attention"), "fd_flash_attention_bsnd_fwd",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p],
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, heads, d, sq, skv, *strides, scale * LOG2E), q.device)
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p],
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geometry,
+             d, scale * LOG2E), q.device)
     _build.launches["flash_attention_bsnd_fwd"] += 1
     return out
 

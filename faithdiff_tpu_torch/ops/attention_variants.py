@@ -14,10 +14,11 @@ import ctypes
 import torch
 
 from . import _build
-from .attention import LOG2E, _check_kernel_inputs, _launch
+from .attention import (GROUP_ROWS, LOG2E, _check_kernel_inputs,
+                        _geometry_argument, _launch, bhsd_geometry)
 
 HEAD_DIM = 64
-# K/V rows per tile the kernel is instantiated for (64 q rows a tile)
+# K/V rows per tile the kernel is instantiated for (128 q rows a block)
 BLOCK_K = (64, 128)
 # every variant the kernel has: (base2, block_k)
 VARIANTS = tuple((base2, bk) for base2 in (False, True) for bk in BLOCK_K)
@@ -56,14 +57,14 @@ def attention_variant(q, k, v, scale: float, base2: bool, block_k: int):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"attention_variant: {name} is not contiguous")
-    if bh > 65535:
-        raise ValueError(f"attention_variant: bh {bh} > 65535")
     out = torch.empty_like(q)
+    geometry = _geometry_argument((
+        bhsd_geometry(q.shape, GROUP_ROWS), bhsd_geometry(k.shape, block_k),
+        bhsd_geometry(v.shape, block_k), bhsd_geometry(out.shape, GROUP_ROWS)))
     _launch(_build.load("flash_attention"), "fd_attention_variant_fwd",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-             q_len, kv_len, scale * LOG2E if base2 else scale, int(base2),
-             block_k), q.device)
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geometry,
+             scale * LOG2E if base2 else scale, int(base2), block_k), q.device)
     _build.launches["attention_variant_fwd"] += 1
     return out

@@ -3,8 +3,8 @@
     python -m faithdiff_tpu_torch.scripts.bench_attention_variants
 
 Counterpart of `scripts/bench_attention_variants.py`. Grid: {base e,
-scale-fold + base 2} x block_k (`ops.attention_variants.VARIANTS`; 64 q
-rows a tile) at the SDXL UNet self-attention shapes (20, 4096, 64) and
+scale-fold + base 2} x block_k (`ops.attention_variants.VARIANTS`; 128 q
+rows a block) at the SDXL UNet self-attention shapes (20, 4096, 64) and
 (40, 1024, 64), bf16. For each variant it prints the device time of one
 call (CUDA events around `iters` calls after a warm-up), the rate, and the
 largest difference from the first variant's output. Raises without a CUDA
@@ -17,11 +17,11 @@ import math
 import numpy as np
 import torch
 
+from faithdiff_tpu_torch.ops.attention import BLOCK_Q
 from faithdiff_tpu_torch.ops.attention_variants import (VARIANTS,
                                                         attention_variant)
 
 SHAPES = ((20, 4096, 64), (40, 1024, 64))
-BLOCK_Q = 64
 
 
 def bench(fn, iters: int) -> float:

@@ -13,6 +13,7 @@ from faithdiff_tpu_torch.ops.attention import (attention_packed,
                                                attention_reference,
                                                einsum_bsnd, flash_attention,
                                                flash_attention_packed,
+                                               flash_attention_tiled,
                                                multi_head_attention)
 from faithdiff_tpu_torch.ops.attention_variants import (
     VARIANTS, attention_variant, attention_variant_reference)
@@ -41,7 +42,10 @@ def _within(out, ref):
 
 @pytest.mark.parametrize("b,h,sq,skv,causal", [
     (1, 2, 1024, 1024, False), (1, 2, 1024, 1024, True),
-    (2, 1, 1000, 1100, False), (1, 3, 1030, 1030, True)])
+    (2, 1, 1000, 1100, False), (1, 3, 1030, 1030, True),
+    (2, 3, 1000, 1100, False),          # partial q block and K/V tile
+    (1, 2, 50, 1100, False), (1, 2, 77, 100, False),    # q under one group
+    (1, 70000, 8, 16, False)])          # more planes than a grid's y extent
 def test_flash_attention_matches_plain(cuda, b, h, sq, skv, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((b, h, sq, 64), generator=g, device=cuda).bfloat16()
@@ -84,7 +88,8 @@ def test_dispatch_sends_long_self_attention_to_the_kernel(cuda):
 
 @pytest.mark.parametrize("b,h,sq,skv,causal", [
     (2, 40, 1024, 1024, True),          # the 13B LLaMA prefill
-    (1, 2, 1030, 1030, True), (1, 3, 1000, 1100, False)])
+    (1, 2, 1030, 1030, True), (1, 3, 1000, 1100, False),
+    (2, 3, 1000, 1100, False), (1, 3, 1030, 1030, True), (1, 2, 40, 77, False)])
 def test_flash_attention_d128_matches_plain(cuda, b, h, sq, skv, causal):
     g = torch.Generator(device=cuda).manual_seed(3)
     q = torch.randn((b, h, sq, 128), generator=g, device=cuda).bfloat16()
@@ -106,7 +111,8 @@ def _packed(cuda, b, sq, skv, f, seed):
 
 @pytest.mark.parametrize("b,heads,sq,skv,d", [
     (2, 3, 1024, 1024, 64), (1, 2, 1000, 1100, 64),   # partial q / kv tiles
-    (2, 2, 1030, 77, 64), (1, 2, 1024, 1030, 128), (2, 1, 100, 1000, 128)])
+    (2, 2, 1030, 77, 64), (1, 2, 1024, 1030, 128), (2, 1, 100, 1000, 128),
+    (2, 2, 50, 1100, 64), (1, 2, 40, 77, 128)])        # q under one group
 def test_flash_attention_packed_matches_plain(cuda, b, heads, sq, skv, d):
     q, k, v = _packed(cuda, b, sq, skv, heads * d, 4)
     _build.launches.clear()
@@ -125,6 +131,32 @@ def test_flash_attention_packed_takes_column_slices(cuda):
     out = flash_attention_packed(q, k, v, 2, 0.125)
     assert _within(out, einsum_bsnd(q.contiguous(), k.contiguous(),
                                     v.contiguous(), 2, 0.125))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(1030, 77), (50, 1100)])
+def test_flash_attention_packed_takes_ragged_column_slices(cuda, d, sq, skv):
+    """q a column slice of a fused [b, s, 3f] projection, k and v of a
+    [b, skv, 2f] one, at lengths that leave partial blocks and tiles."""
+    f = 2 * d
+    q = _packed(cuda, 2, sq, sq, 3 * f, 9)[0][..., f:2 * f]
+    k, v = _packed(cuda, 2, skv, skv, 2 * f, 10)[0].split(f, dim=-1)
+    out = flash_attention_packed(q, k, v, 2, d ** -0.5)
+    assert out.shape == q.shape and out.is_contiguous()
+    assert _within(out, einsum_bsnd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), 2, d ** -0.5))
+
+
+@pytest.mark.parametrize("d,causal", [(64, True), (64, False), (128, True)])
+def test_flash_attention_matches_its_tile_walk(cuda, d, causal):
+    """The kernel against the plain walk of its own schedule: the same
+    tiles, masks and bf16 roundings, so the sums' order and the hardware
+    exp2 are all that differ."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((1, 2, 1030, d), generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    out = flash_attention(q, k, v, d ** -0.5, causal)
+    assert _within(out, flash_attention_tiled(q, k, v, d ** -0.5, causal))
 
 
 def test_flash_attention_packed_rejects_what_it_does_not_take(cuda):
