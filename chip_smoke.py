@@ -15,21 +15,38 @@
    the achieved TFLOP/s, the time over the bound and the wrapper's host
    cost beside them. Also holds the flash kernels at ragged and short
    lengths and on column-slice operands (correctness only).
+3b. GroupNorm, both routes of `ops/groupnorm.plan_group_norm` at the UNet's
+   ResNet / Transformer2D shapes at batch 4, the full-resolution VAE shape
+   and the 15-tile restore's [30, 2560, 32, 32] (B*C = 76,800 rows): the
+   single-pass cluster kernel where the plan has one (output against the
+   plain version and against `group_norm_tiled`, statistics read from an
+   fp32 run, same bits on a repeat) and the two-pass pair through the
+   launch's own methods. Every GroupNorm time comes from CUDA graphs, each
+   row with its bound, `F.group_norm` where that one call computes the same
+   function, and the wrapper's host cost (`host_us`).
 4. Runs a full-width restore (default SDXL UNet / VAE / denoise-encoder
    configs, bf16, seeded random weights) of a 1024x1536 uint8 image: two
    128^2 latent tiles, 20 Euler steps, guidance 5, start_point "lr",
    wavelet color fix. Checks the output and that every kernel of the path
-   was launched the expected number of times.
+   was launched the expected number of times: the flash kernel once per
+   self-attention, and each GroupNorm's kernels as the launch plan predicts
+   from the shape each GroupNorm module saw (forward hooks).
 5. Runs the restore's last UNet call once more under torch.profiler and
    prints device time by layer and by kernel, and the busy share.
 5b. Runs the same restore again on the packed-attention path
    (`transformer2d._BSND_ATTN`, as FAITHDIFF_BSND_ATTN=1 sets it), checks
    it and its launches, profiles its last UNet call, and holds that call
    on the packed path against the default path.
+5b'. `restore_large`: the same pipeline on a 2048x3072 uint8 image (a
+   1024x1536 photo at the CLI's default --upscale 2): 15 latent tiles, UNet
+   batch 30, 20 steps, the default attention path; checks the output
+   shape, finite latents, 20 UNet calls and the planned GroupNorm launches,
+   and prints wall, denoise and decode seconds, the UNet call medians,
+   peak memory and the launches. Then frees the pipeline.
 5c. Runs the attention-variant benchmark's entry point
    (`faithdiff_tpu_torch.scripts.bench_attention_variants.main`) and
    checks its launches.
-6. Frees the restore, then holds the NF4 dequant-matmul kernel against its
+6. Holds the NF4 dequant-matmul kernel against its
    plain version at the 13B captioner's shapes (M = 1, 2, 640 and the
    caption's own prefill M, 2 x the prompt length), with its
    bound and, as context only, a bf16 matmul against the decoded weight.
@@ -78,18 +95,23 @@ ATTN_SHAPES = [((4, 10, 4096, 64), False), ((4, 20, 1024, 64), False),
 PACKED_SHAPES = [((4, 4096, 640), 10), ((4, 1024, 1280), 20)]
 # (shape, base2, block_k) of the variant kernel's kernels entry
 VARIANT_REPORT = ((20, 4096, 64), True, 64)
-# (shape NCHW, eps, act, with add): UNet ResNet / Transformer2D norms and
-# the full-resolution VAE decoder norm
+# (shape NCHW, eps, act, with add): UNet ResNet / Transformer2D norms, the
+# full-resolution VAE decoder norm (two-pass: its group outgrows a cluster)
+# and the 15-tile restore's largest ResNet norm (B*C = 76,800 rows)
 GN_SHAPES = [((4, 320, 128, 128), 1e-5, "silu", True),
              ((4, 640, 64, 64), 1e-6, None, False),
              ((4, 1280, 32, 32), 1e-5, "silu", True),
-             ((1, 128, 1024, 1536), 1e-6, "silu", False)]
+             ((1, 128, 1024, 1536), 1e-6, "silu", False),
+             ((30, 2560, 32, 32), 1e-5, "silu", True)]
 # the shape each kernel's JSON entry reports: the first attention shape,
 # and the GroupNorm shape for which one library call (F.group_norm)
 # computes the same function
 ATTN_REPORT, GN_REPORT, PACKED_REPORT = 0, 1, 0
 
 TILE_PIXELS = (1024, 1536)
+# a 1024x1536 photo at the CLI's default --upscale 2: 15 latent tiles of
+# 128^2, UNet batch 30 (B*C up to 76,800 rows in its ResNet norms)
+LARGE_PIXELS, LARGE_TILES = (2048, 3072), 15
 STEPS = 20
 
 # the 13B LLaMA projections (in, out): q/k/v/o, gate/up, down; M = B at
@@ -412,15 +434,37 @@ def check_attention_variants(torch):
     return rows
 
 
+def implied_stats(torch, x, y, groups, add=None):
+    """Per-group mean and E[v^2] (float64) that an output y = (v - mean) *
+    rstd (scale 1, bias 0, no act) implies, v = x + add: rstd by least
+    squares of y on v. The single-pass kernel keeps its sums on chip; this
+    is how its statistics are read."""
+    b, c = x.shape[:2]
+    v = x.double().reshape(b, c, -1)
+    if add is not None:
+        v = v + add.double().reshape(b, c, 1)
+    v, y = v.reshape(b, groups, -1), y.double().reshape(b, groups, -1)
+    vc, yc = v - v.mean(-1, keepdim=True), y - y.mean(-1, keepdim=True)
+    rstd = (vc * yc).sum(-1) / vc.square().sum(-1)
+    return v.mean(-1) - y.mean(-1) / rstd, v.square().mean(-1)
+
+
 def check_group_norm(torch):
+    """Both routes at every GN_SHAPES shape, bf16: the single-pass kernel
+    where the plan has one (output against the plain version and the tile
+    walk, statistics from an fp32 run), and the two-pass pair (partials
+    against the plain statistics, output against the plain version). Every
+    time from CUDA graphs; the wrapper's host cost from a loop of calls."""
     import torch.nn.functional as F
 
     from faithdiff_tpu_torch.ops.groupnorm import (GroupNormLaunch,
                                                    group_apply_reference,
+                                                   group_norm,
                                                    group_norm_reference,
+                                                   group_norm_tiled,
                                                    group_stats_reference)
 
-    stats_rows, apply_rows = [], []
+    fused_rows, stats_rows, apply_rows = [], [], []
     gen = torch.Generator(device="cuda").manual_seed(1)
     groups = 32
     for shape, eps, act, with_add in GN_SHAPES:
@@ -430,53 +474,104 @@ def check_group_norm(torch):
         bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
         add = (torch.randn((b, c), generator=gen, device="cuda")
                if with_add else None)
+        n = x[0, 0].numel() * (c // groups)
+        gs1, gs2 = group_stats_reference(x, groups, add)
+        ref = group_norm_reference(x, scale, bias, groups, eps, act, add)
+        numel, esize = x.numel(), x.element_size()
+        add_bytes = 0 if add is None else add.numel() * 4
+        flops = numel * (5 + (4 if act == "silu" else 0))
+        # the function's floor: x read once, y written once
+        fn_ms, fn_by = bound(flops, 2 * numel * esize + add_bytes,
+                             PEAK_FP32_FLOPS)
+        lib_ms = None
+        if add is None and act is None:
+            lib_ms = graph_ms(torch, lambda: F.group_norm(
+                x, groups, scale.to(x.dtype), bias.to(x.dtype), eps))
+        common = dict(shape=list(shape), eps=eps, act=act, add=with_add)
+
+        def hold(y):
+            err = (y.float() - ref.float()).abs()
+            # one bf16 rounding step of the output, plus fp32 noise
+            ok = (bool((err <= 1e-2 + 8e-3 * ref.float().abs()).all())
+                  and bool(torch.isfinite(y).all()))
+            return float(err.max()), ok
+
         launch = GroupNormLaunch(x, scale, bias, groups, eps, act, add)
+        plan = launch.plan
+        if plan.cluster:
+            y = launch.fused()
+            torch.cuda.synchronize()
+            err, ok = hold(y)
+            again = launch.fused().clone()
+            same = bool(torch.equal(again, launch.fused()))
+            tiled = group_norm_tiled(x, scale, bias, groups, eps, act, add,
+                                     route="fused")
+            t_err = (y.float() - tiled.float()).abs()
+            tiled_err = float(t_err.max())
+            # the walk sums in another order: a bf16 step of the output
+            tiled_ok = bool((t_err <= 1e-2 + 8e-3 * tiled.float().abs()).all())
+            x32 = x.float()
+            y32 = GroupNormLaunch(x32, torch.ones_like(scale),
+                                  torch.zeros_like(bias), groups, eps, None,
+                                  add).fused()
+            mean, m2 = implied_stats(torch, x32, y32, groups, add)
+            s_err = float(torch.maximum((mean - gs1.double() / n).abs(),
+                                        (m2 - gs2.double() / n).abs()).max())
+            ms = graph_ms(torch, launch.fused)
+            row = dict(common, route="fused", cluster=plan.cluster,
+                       slice_kib=plan.slice_len * esize / 1024,
+                       blocks=plan.fused_grid, max_abs_err=err,
+                       tol="1e-2 + 8e-3*|ref|", stats_err=s_err,
+                       stats_tol="1e-4", tiled_err=tiled_err, same_bits=same,
+                       ok=ok and same and s_err <= 1e-4 and tiled_ok,
+                       ms=ms, plain_ms=time_ms(torch, lambda: group_norm_reference(
+                           x, scale, bias, groups, eps, act, add), 3, 1),
+                       library_ms=lib_ms, bound_ms=fn_ms, bound_by=fn_by,
+                       ms_over_bound=ms / fn_ms,
+                       host_us=host_us(torch, lambda: group_norm(
+                           x, scale, bias, groups, eps, act, add)))
+            print("group_norm_fused", json.dumps(row), flush=True)
+            fused_rows.append(row)
+            del y, y32, x32, tiled, t_err, again
+        # the two-pass pair, through the launch's own methods
         partial = launch.stats()
         y = launch.apply()
         torch.cuda.synchronize()
-        n = x[0, 0].numel() * (c // groups)
-        gs1, gs2 = group_stats_reference(x, groups, add)
         folded = partial.double().sum(dim=1).reshape(b, groups, 2)
         # pass 1: mean and E[x^2] per group, fp32 sums in another order
         s_err = torch.maximum((folded[..., 0] / n - gs1.double() / n).abs(),
                               (folded[..., 1] / n - gs2.double() / n).abs())
-        s_ok = bool((s_err <= 1e-4).all())
-        ref = group_norm_reference(x, scale, bias, groups, eps, act, add)
-        err = (y.float() - ref.float()).abs()
-        # one bf16 rounding step of the output, plus fp32 noise
-        tol = 1e-2 + 8e-3 * ref.float().abs()
-        a_ok = bool((err <= tol).all()) and bool(torch.isfinite(y).all())
-        numel, esize = x.numel(), x.element_size()
-        add_bytes = 0 if add is None else add.numel() * 4
-        silu_ops = 4 if act == "silu" else 0
+        err, a_ok = hold(y)
+        same = bool(torch.equal(y.clone(), launch.two_pass()))
+        pair_ms = graph_ms(torch, launch.two_pass)
         st_ms, st_by = bound(numel * 4, numel * esize + add_bytes,
                              PEAK_FP32_FLOPS)
-        ap_ms, ap_by = bound(numel * (3 + silu_ops),
+        ap_ms, ap_by = bound(numel * (3 + (4 if act == "silu" else 0)),
                              2 * numel * esize + add_bytes, PEAK_FP32_FLOPS)
-        iters = 20 if numel > 1e8 else 100
-        lib_ms = None
-        if add is None and act is None:
-            lib_ms = time_ms(torch, lambda: F.group_norm(
-                x, groups, scale.to(x.dtype), bias.to(x.dtype), eps), iters)
-        common = dict(shape=list(shape), eps=eps, act=act, add=with_add)
-        srow = dict(common, max_abs_err=float(s_err.max()), tol="1e-4", ok=s_ok,
-                    ms=time_ms(torch, launch.stats, iters),
+        two = dict(route="two_pass", pair_ms=pair_ms,
+                   pair_over_bound=pair_ms / fn_ms, function_bound_ms=fn_ms,
+                   host_us=(None if plan.route == "fused" else host_us(
+                       torch, lambda: group_norm(x, scale, bias, groups, eps,
+                                                 act, add))))
+        srow = dict(common, **two, max_abs_err=float(s_err.max()), tol="1e-4",
+                    ok=bool((s_err <= 1e-4).all()),
+                    ms=graph_ms(torch, launch.stats),
                     plain_ms=time_ms(torch, lambda: group_stats_reference(
-                        x, groups, add), 5, 1),
+                        x, groups, add), 3, 1),
                     library_ms=None, bound_ms=st_ms, bound_by=st_by)
-        arow = dict(common, max_abs_err=float(err.max()),
-                    tol="1e-2 + 8e-3*|ref|", ok=a_ok,
-                    ms=time_ms(torch, launch.apply, iters),
+        arow = dict(common, **two, max_abs_err=err, tol="1e-2 + 8e-3*|ref|",
+                    same_bits=same, ok=a_ok and same,
+                    ms=graph_ms(torch, launch.apply),
                     plain_ms=time_ms(torch, lambda: group_apply_reference(
-                        x, gs1, gs2, scale, bias, groups, eps, act, add), 5, 1),
+                        x, gs1, gs2, scale, bias, groups, eps, act, add), 3, 1),
                     library_ms=lib_ms, bound_ms=ap_ms, bound_by=ap_by)
         print("group_norm_stats", json.dumps(srow), flush=True)
         print("group_norm_apply", json.dumps(arow), flush=True)
         stats_rows.append(srow)
         apply_rows.append(arow)
-        del x, y, ref, err, tol, launch, partial
+        del x, y, ref, launch, partial
         torch.cuda.empty_cache()
-    return stats_rows, apply_rows
+    return fused_rows, stats_rows, apply_rows
 
 
 def count_modules(module, cls) -> int:
@@ -513,33 +608,36 @@ def build_restore(torch):
     return pipe
 
 
-def run_restore(torch, pipe, packed: bool):
-    """The main path: one 2-tile restore, on the default attention path or
-    on the packed one. Returns the launch counts and the last UNet call's
-    (args, kwargs)."""
+def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
+                label: str = ""):
+    """The main path: one restore of a `pixels` uint8 image, on the default
+    attention path or on the packed one. Checks the output, the UNet calls
+    and that every kernel ran as often as expected: the flash kernel once
+    per self-attention a UNet call, and each GroupNorm's kernels as the
+    launch plan predicts from the shape the module saw. Returns the launch
+    counts and the last UNet call's (args, kwargs)."""
     import numpy as np
 
     from faithdiff_tpu_torch.models.layers import GroupNorm
     from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
     from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops.groupnorm import plan_group_norm
 
-    label = "restore_packed" if packed else "restore"
-    # each GroupNorm module runs once per forward of its model; every
-    # self-attention (attn1) of the UNet runs at >= 1024 tokens at a 128^2
-    # latent tile and so goes to a flash kernel: the BHSD one by default,
-    # the packed one on the packed path
+    label = label or ("restore_packed" if packed else "restore")
+    # every self-attention (attn1) of the UNet runs at >= 1024 tokens at a
+    # 128^2 latent tile and so goes to a flash kernel: the BHSD one by
+    # default, the packed one on the packed path
     gn_unet = count_modules(pipe.unet, GroupNorm)
     attn_unet = count_modules(pipe.unet, BasicTransformerBlock)
     if (gn_unet, attn_unet) != (47, 70):
         fail(f"UNet has {gn_unet} GroupNorms and {attn_unet} self-attentions, "
              "expected 47 and 70")
-    gn_rest = (count_modules(pipe.denoise_encoder, GroupNorm)
-               + count_modules(pipe.vae.encoder, GroupNorm)
-               + count_modules(pipe.vae.decoder, GroupNorm))
 
     unet_ms = []
     events = []
     last_call = []
+    # (model, shape, itemsize, groups, aligned) of each GroupNorm call
+    gn_seen = []
 
     def pre_hook(module, args, kwargs):
         last_call[:] = [args, kwargs]
@@ -552,11 +650,21 @@ def run_restore(torch, pipe, packed: bool):
         ev.record()
         events.append(ev)
 
-    h1 = pipe.unet.register_forward_pre_hook(pre_hook, with_kwargs=True)
-    h2 = pipe.unet.register_forward_hook(post_hook)
+    def gn_hook(model):
+        def hook(module, args):
+            x = args[0]
+            gn_seen.append((model, tuple(x.shape), x.element_size(),
+                            module.num_groups, x.data_ptr() % 16 == 0))
+        return hook
+
+    hooks = [pipe.unet.register_forward_pre_hook(pre_hook, with_kwargs=True),
+             pipe.unet.register_forward_hook(post_hook)]
+    hooks += [m.register_forward_pre_hook(gn_hook(name))
+              for name in ("unet", "vae", "denoise_encoder")
+              for m in getattr(pipe, name).modules() if isinstance(m, GroupNorm)]
 
     img = np.random.default_rng(0).integers(
-        0, 256, TILE_PIXELS + (3,), dtype=np.uint8)
+        0, 256, tuple(pixels) + (3,), dtype=np.uint8)
     prompt = torch.zeros((1, 77, 2048))
     pooled = torch.zeros((1, 1280))
 
@@ -572,34 +680,44 @@ def run_restore(torch, pipe, packed: bool):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts = dict(_build.launches)
-    h1.remove()
-    h2.remove()
+    for h in hooks:
+        h.remove()
     for a, b in zip(events[::2], events[1::2]):
         unet_ms.append(a.elapsed_time(b))
 
-    lh, lw = TILE_PIXELS[0] // 8, TILE_PIXELS[1] // 8
+    lh, lw = pixels[0] // 8, pixels[1] // 8
     if tuple(latents.shape) != (1, lh, lw, 4):
-        fail(f"latents shape {tuple(latents.shape)}")
+        fail(f"{label}: latents shape {tuple(latents.shape)}")
     if not bool(torch.isfinite(latents).all()):
-        fail("latents are not finite")
+        fail(f"{label}: latents are not finite")
     if not (isinstance(out, np.ndarray) and out.dtype == np.uint8
-            and out.shape == TILE_PIXELS + (3,)):
-        fail(f"output {type(out)} {getattr(out, 'shape', None)}")
+            and out.shape == tuple(pixels) + (3,)):
+        fail(f"{label}: output {type(out)} {getattr(out, 'shape', None)}")
     if len(unet_ms) != STEPS:
-        fail(f"{len(unet_ms)} UNet calls, expected {STEPS}")
+        fail(f"{label}: {len(unet_ms)} UNet calls, expected {STEPS}")
+    unet_batch = last_call[0][0].shape[0]
     flash = "flash_attention_bsnd_fwd" if packed else "flash_attention_fwd"
-    expected = {flash: STEPS * attn_unet,
-                "group_norm_stats": STEPS * gn_unet + gn_rest,
-                "group_norm_apply": STEPS * gn_unet + gn_rest}
+    expected = {flash: STEPS * attn_unet}
+    unet_routes = []
+    for model, shape, itemsize, groups, aligned in gn_seen:
+        plan = plan_group_norm(shape, itemsize, groups, aligned)
+        for name in plan.counters:
+            expected[name] = expected.get(name, 0) + 1
+        if model == "unet":
+            unet_routes.append(plan.route)
+    if unet_routes != ["fused"] * (STEPS * gn_unet):
+        fail(f"{label}: not every UNet GroupNorm is one single-pass launch: "
+             f"{len(unet_routes)} calls, {unet_routes.count('fused')} fused")
     if counts != expected:
-        fail(f"launch counts {counts}, expected {expected}")
+        fail(f"{label}: launch counts {counts}, expected {expected}")
+    med = sorted(unet_ms)[STEPS // 2]
     result = dict(
         wall_s=t2 - t0, denoise_call_s=t1 - t0, decode_s=t2 - t1,
         unet_ms_per_step=sum(unet_ms) / len(unet_ms),
         unet_ms_first=unet_ms[0], unet_ms_min=min(unet_ms),
-        unet_ms_median=sorted(unet_ms)[STEPS // 2],
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        steps=STEPS, tiles=2, unet_batch=4, launches=counts,
+        unet_ms_median=med, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        steps=STEPS, tiles=unet_batch // 2, unet_batch=unet_batch,
+        pixels=list(pixels), launches=counts, launches_as_planned=True,
         out_mean=float(out.mean()))
     print(label, json.dumps(result), flush=True)
     return counts, last_call
@@ -1023,8 +1141,8 @@ def main() -> int:
     packed = check_attention_packed(torch)
     ragged = check_attention_ragged(torch)
     variants = check_attention_variants(torch)
-    stats, apply_ = check_group_norm(torch)
-    bad = [r for r in attn + packed + ragged + variants + stats + apply_
+    fused, stats, apply_ = check_group_norm(torch)
+    bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_
            if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
@@ -1037,6 +1155,15 @@ def main() -> int:
     with attention_path(True):
         profile_call(torch, "profile_packed", pipe.unet, args, kwargs)
     check_path_parity(torch, pipe.unet, args, kwargs)
+    del args, kwargs
+    if not all(counts.get(k) for k in ("group_norm_fused", "group_norm_stats",
+                                       "group_norm_apply")):
+        fail(f"restore did not launch every GroupNorm kernel: {counts}")
+    _, (args, kwargs) = run_restore(torch, pipe, packed=False,
+                                    pixels=LARGE_PIXELS, label="restore_large")
+    if args[0].shape[0] != 2 * LARGE_TILES:
+        fail(f"restore_large: UNet batch {args[0].shape[0]}, expected "
+             f"{2 * LARGE_TILES} ({LARGE_TILES} tiles)")
     del pipe, args, kwargs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1061,6 +1188,10 @@ def main() -> int:
         entry("flash_attention_fwd", attn[ATTN_REPORT],
               "faithdiff_tpu_torch/csrc/flash_attention.cu",
               "faithdiff_tpu/ops/attention.py:45"),
+        entry("group_norm_fused",
+              next(r for r in fused if r["shape"] == list(GN_SHAPES[GN_REPORT][0])),
+              "faithdiff_tpu_torch/csrc/group_norm.cu",
+              "faithdiff_tpu/ops/groupnorm.py:33 and :92 (_stats_kernel, _apply_kernel)"),
         entry("group_norm_stats", stats[GN_REPORT],
               "faithdiff_tpu_torch/csrc/group_norm.cu",
               "faithdiff_tpu/ops/groupnorm.py:33"),

@@ -17,7 +17,10 @@ from faithdiff_tpu_torch.ops.attention import (attention_packed,
                                                multi_head_attention)
 from faithdiff_tpu_torch.ops.attention_variants import (
     VARIANTS, attention_variant, attention_variant_reference)
-from faithdiff_tpu_torch.ops.groupnorm import group_norm, group_norm_reference
+from faithdiff_tpu_torch.ops.groupnorm import (GroupNormLaunch, group_norm,
+                                               group_norm_reference,
+                                               group_stats_reference,
+                                               plan_group_norm)
 from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_matmul_kernel,
                                                 nf4_matmul_reference)
 from faithdiff_tpu_torch.utils.quantize import (NF4_PACK_PAIRWISE, NF4Weight,
@@ -212,6 +215,32 @@ def test_attention_variant_rejects_what_it_does_not_take(cuda):
                           q[..., :32].contiguous(), 0.125, True, 64)
 
 
+def _gn_inputs(cuda, shape, dtype, with_add, seed=1):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (2 * torch.randn(shape, generator=gen, device=cuda) + 0.3).to(dtype)
+    c = shape[1]
+    scale = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    add = torch.randn((shape[0], c), generator=gen, device=cuda) \
+        if with_add else None
+    return x, scale, bias, add
+
+
+def _implied_stats(x, y, g, add=None):
+    """Per-group mean and E[v^2] that an output y = (v - mean) * rstd (scale
+    1, bias 0, no act) implies, v = x + add: rstd by least squares of y on
+    v, in float64."""
+    b, c = x.shape[:2]
+    v = x.double().reshape(b, c, -1)
+    if add is not None:
+        v = v + add.double().reshape(b, c, 1)
+    v, y = v.reshape(b, g, -1), y.double().reshape(b, g, -1)
+    vc, yc = v - v.mean(-1, keepdim=True), y - y.mean(-1, keepdim=True)
+    rstd = (vc * yc).sum(-1) / vc.square().sum(-1)
+    mean = v.mean(-1) - y.mean(-1) / rstd
+    return mean, v.square().mean(-1)
+
+
 @pytest.mark.parametrize("shape,g,dtype,act,with_add", [
     ((2, 64, 16, 16), 32, torch.bfloat16, "silu", True),
     ((1, 32, 5, 7), 8, torch.bfloat16, None, False),       # HW % 8 != 0
@@ -219,21 +248,67 @@ def test_attention_variant_rejects_what_it_does_not_take(cuda):
     ((1, 96, 33, 31), 32, torch.float16, None, True),
     ((1, 128, 256, 384), 32, torch.bfloat16, "silu", False)])
 def test_group_norm_matches_plain(cuda, shape, g, dtype, act, with_add):
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    x = (2 * torch.randn(shape, generator=gen, device=cuda) + 0.3).to(dtype)
-    c = shape[1]
-    scale = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda)
-    bias = 0.1 * torch.randn(c, generator=gen, device=cuda)
-    add = torch.randn((shape[0], c), generator=gen, device=cuda) \
-        if with_add else None
+    x, scale, bias, add = _gn_inputs(cuda, shape, dtype, with_add)
     _build.launches.clear()
     out = group_norm(x, scale, bias, g, 1e-6, act, add)
     torch.cuda.synchronize()
-    assert _build.launches["group_norm_stats"] == 1
-    assert _build.launches["group_norm_apply"] == 1
+    plan = plan_group_norm(shape, x.element_size(), g)
+    assert dict(_build.launches) == {name: 1 for name in plan.counters}
     assert _within(out, group_norm_reference(x, scale, bias, g, 1e-6, act, add))
     again = group_norm(x, scale, bias, g, 1e-6, act, add)
     assert torch.equal(out, again)              # no atomics: same bits
+
+
+# [C, H] of each GroupNorm of the full-width UNet at a 128^2 latent tile
+UNET_GN = [(512, 128), (320, 128), (640, 128), (960, 128), (320, 64),
+           (640, 64), (960, 64), (1280, 64), (1920, 64), (640, 32),
+           (1280, 32), (1920, 32), (2560, 32)]
+
+
+@pytest.mark.parametrize("c,side", UNET_GN)
+def test_group_norm_single_pass_at_unet_shapes(cuda, c, side):
+    """UNet batch 4 (two tiles' CFG pairs), bf16 with bf16 scale, bias and
+    add as the model holds them: one launch, within a bf16 step of the
+    plain version, and the statistics within 1e-4 (from an fp32 run with
+    scale 1 and bias 0)."""
+    shape = (4, c, side, side)
+    x, scale, bias, add = _gn_inputs(cuda, shape, torch.bfloat16, True)
+    scale, bias, add = scale.bfloat16(), bias.bfloat16(), add.bfloat16()
+    assert plan_group_norm(shape, 2, 32).route == "fused"
+    _build.launches.clear()
+    out = group_norm(x, scale, bias, 32, 1e-5, "silu", add)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"group_norm_fused": 1}
+    assert _within(out, group_norm_reference(x, scale, bias, 32, 1e-5, "silu", add))
+    assert torch.equal(out, group_norm(x, scale, bias, 32, 1e-5, "silu", add))
+    x32 = x.float()
+    y32 = group_norm(x32, torch.ones_like(scale), torch.zeros_like(bias), 32,
+                     1e-5, None, add)
+    mean, m2 = _implied_stats(x32, y32, 32, add)
+    gs1, gs2 = group_stats_reference(x32, 32, add)
+    n = gs1.new_tensor(x[0, 0].numel() * c // 32).double()
+    assert float((mean - gs1.double() / n).abs().max()) <= 1e-4
+    assert float((m2 - gs2.double() / n).abs().max()) <= 1e-4
+
+
+def test_group_norm_both_routes_past_65535_rows(cuda):
+    """[30, 2560, 32, 32]: B*C = 76,800 rows, more than a grid's y extent
+    holds (the 15-tile restore's largest ResNet norm). Both routes, with
+    add and SiLU; the two-pass route through the launch's own method."""
+    shape = (30, 2560, 32, 32)
+    x, scale, bias, add = _gn_inputs(cuda, shape, torch.bfloat16, True)
+    ref = group_norm_reference(x, scale, bias, 32, 1e-5, "silu", add)
+    _build.launches.clear()
+    fused = group_norm(x, scale, bias, 32, 1e-5, "silu", add)
+    launch = GroupNormLaunch(x, scale, bias, 32, 1e-5, "silu", add)
+    two = launch.two_pass()
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"group_norm_fused": 1,
+                                     "group_norm_stats": 1,
+                                     "group_norm_apply": 1}
+    assert _within(fused, ref) and _within(two, ref)
+    assert torch.equal(fused, group_norm(x, scale, bias, 32, 1e-5, "silu", add))
+    assert torch.equal(two.clone(), launch.two_pass())
 
 
 def test_group_norm_takes_unaligned_x(cuda):
