@@ -47,9 +47,11 @@
    (`faithdiff_tpu_torch.scripts.bench_attention_variants.main`) and
    checks its launches.
 6. Holds the NF4 dequant-matmul kernel against its
-   plain version at the 13B captioner's shapes (M = 1, 2, 640 and the
-   caption's own prefill M, 2 x the prompt length), with its
-   bound and, as context only, a bf16 matmul against the decoded weight.
+   plain version at the 13B captioner's shapes (M = 1, 2, 4, 8 on the
+   decode route, 640 and the caption's own prefill M, 2 x the prompt
+   length, on the tiled route), with its bound, the time over the bound,
+   the route that served it, the same bits on two calls and, as context
+   only, a bf16 matmul against the decoded weight.
 7. Holds a tiny nf4 captioner LLaMA on the card (kernel) against the same
    weights on the CPU (plain version, fp32), and runs the causal prefill
    of the full-width 13B LLaMA's first two layers over 1024 tokens, which
@@ -58,7 +60,9 @@
    (`quant="nf4"`, ViT-L/14-336, mlp2x projector; bf16, seeded random
    weights; the agent's defaults: temperature 0.2, top-p 0.7, 512 new
    tokens) and checks the prompt, the tokens, finite logits and that the
-   NF4 kernel ran 280 times (7 projections x 40 layers) per forward pass;
+   NF4 kernel ran 280 times (7 projections x 40 layers) per forward pass,
+   on the tiled route for the prefill and the decode route for each
+   decode forward;
    then profiles the last decode step as step 5 profiles the UNet.
 9. Prints the card line, a JSON line listing every ported kernel, then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
@@ -115,10 +119,12 @@ LARGE_PIXELS, LARGE_TILES = (2048, 3072), 15
 STEPS = 20
 
 # the 13B LLaMA projections (in, out): q/k/v/o, gate/up, down; M = B at
-# decode and B * prompt length at prefill. check_nf4 adds the caption's
-# own prefill M (caption_prefill_m), whose last 64-row tile is partial.
+# decode (the decode route takes up to 8) and B * prompt length at
+# prefill. check_nf4 adds the caption's own prefill M (caption_prefill_m),
+# whose last 64-row tile is partial.
 NF4_SHAPES = [(5120, 5120), (5120, 13824), (13824, 5120)]
-NF4_M = [1, 2, 640]
+NF4_M = [1, 2, 4, 8, 640]
+NF4_GEMV_MAX_M = 8                       # M of the decode route: nf4_gemv, above nf4_gemm
 NF4_REPORT = (1, 5120, 13824)            # (M, in, out) of the kernels entry
 CAPTION_IMAGES = [(768, 1024), (1024, 768)]
 CAPTION_NEW_TOKENS = 512
@@ -805,20 +811,25 @@ def profile_call(torch, label, module, args, kwargs):
     return result
 
 
-def check_nf4(torch):
-    """The NF4 kernel against its plain version at the captioner's shapes.
+def check_nf4(torch, ms_checked=None):
+    """The NF4 kernel against its plain version at the captioner's shapes,
+    for each M of `ms_checked` (default NF4_M and the caption's prefill M).
     The kernel streams each weight once per call, as the decode path does
     (280 different weights per token): its timed launches cycle through
     copies of the weight that together exceed the 50 MB L2. The kernel and
     the bf16 yardstick are timed from CUDA graphs (device time), the plain
-    version from a loop of calls."""
-    from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_matmul_kernel,
-                                                    nf4_matmul_reference)
+    version from a loop of calls. A row is `ok` when it is `in_tol` (within
+    tolerance, finite), has the same bits on two calls and was counted on
+    its route (`route` is None for a port that counts no routes, as
+    `faithdiff_tpu_torch/scripts/bench_nf4_decode.py` may time)."""
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops.nf4_matmul import nf4_matmul_kernel, nf4_matmul_reference
     from faithdiff_tpu_torch.utils.quantize import dequantize_nf4, quantize_nf4
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
-    ms_checked = NF4_M + [caption_prefill_m()]
+    if ms_checked is None:
+        ms_checked = NF4_M + [caption_prefill_m()]
     for in_f, out_f in NF4_SHAPES:
         w = (torch.randn((in_f, out_f), generator=gen, device="cuda")
              * in_f ** -0.5).to(torch.bfloat16)
@@ -830,7 +841,10 @@ def check_nf4(torch):
                         for _ in range(int(2 * 50e6 // weight_bytes))]
         for m in ms_checked:
             x = torch.randn((m, in_f), generator=gen, device="cuda").to(torch.bfloat16)
+            _build.launches.clear()
             out = nf4_matmul_kernel(x, q)
+            route = next((r for r in ("nf4_gemv", "nf4_gemm") if _build.launches[r]), None)
+            same_bits = bool(torch.equal(out, nf4_matmul_kernel(x, q)))
             torch.cuda.synchronize()
             ref = nf4_matmul_reference(x, q)
             err = (out.float() - ref.float()).abs()
@@ -838,7 +852,9 @@ def check_nf4(torch):
             # exactly; the fp32 sums run in another order, which can move
             # the one bf16 rounding of the output by a step (2^-8 relative)
             tol = 1e-2 * (1 + ref.float().abs())
-            ok = bool((err <= tol).all()) and bool(torch.isfinite(out).all())
+            in_tol = bool((err <= tol).all()) and bool(torch.isfinite(out).all())
+            ok = (in_tol and same_bits
+                  and route == ("nf4_gemv" if m <= NF4_GEMV_MAX_M else "nf4_gemm"))
             turn = iter(range(1 << 30))
 
             def cold():
@@ -847,9 +863,11 @@ def check_nf4(torch):
             b_ms, b_by = bound(2 * m * in_f * out_f,
                                weight_bytes + m * in_f * 2 + m * out_f * 2,
                                PEAK_BF16_FLOPS)
-            row = dict(m=m, in_f=in_f, out_f=out_f, max_abs_err=float(err.max()),
-                       tol="1e-2*(1+|ref|)", ok=ok,
-                       ms=graph_ms(torch, cold),
+            ms = graph_ms(torch, cold)
+            row = dict(m=m, in_f=in_f, out_f=out_f, route=route,
+                       max_abs_err=float(err.max()), tol="1e-2*(1+|ref|)", in_tol=in_tol,
+                       ok=ok,
+                       same_bits=same_bits, ms=ms, ms_over_bound=ms / b_ms,
                        plain_ms=time_ms(torch, lambda: nf4_matmul_reference(x, q), 3, 1),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
                        decoded_bf16_matmul_ms=graph_ms(
@@ -909,7 +927,7 @@ def caption_prefill_m() -> int:
 def check_caption_small(torch):
     """A tiny nf4 LLaMA on the card (the NF4 kernel, bf16) against the same
     weights on the CPU (the plain version, fp32): prefill logits (the
-    tiled path, M = 24) and one-row logits (the M <= 8 path)."""
+    tiled route, M = 24) and one-row logits (the decode route)."""
     import dataclasses
 
     from faithdiff_tpu_torch.captioner.llama import (LlamaConfig,
@@ -930,13 +948,15 @@ def check_caption_small(torch):
     pos = torch.arange(12)[None].expand(2, 12)
     worst = 0.0
     with torch.no_grad():
-        for e, p in ((emb, pos), (emb[:1, :1], pos[:1, :1])):
+        for e, p, route in ((emb, pos, "nf4_gemm"), (emb[:1, :1], pos[:1, :1], "nf4_gemv")):
             _build.launches.clear()
             ref, _ = cpu(e, p)
             got, _ = card(e.cuda().bfloat16(), p.cuda())
             torch.cuda.synchronize()
-            if _build.launches["nf4_matmul"] != 7 * cfg.num_hidden_layers:
-                fail(f"tiny captioner: {dict(_build.launches)} launches")
+            n = 7 * cfg.num_hidden_layers
+            if dict(_build.launches) != {"nf4_matmul": n, route: n}:
+                fail(f"tiny captioner: {dict(_build.launches)} launches, expected "
+                     f"{n} on {route}")
             err = (got.float().cpu() - ref).abs()
             # bf16 activations and weights against fp32 through two layers
             if not bool((err <= 5e-2 * (1 + ref.abs())).all()):
@@ -978,7 +998,7 @@ def check_llama_prefill(torch):
         torch.cuda.synchronize()
     counts = dict(_build.launches)
     expected = {"flash_attention_fwd": PREFILL_LAYERS,
-                "nf4_matmul": 7 * PREFILL_LAYERS}
+                "nf4_matmul": 7 * PREFILL_LAYERS, "nf4_gemm": 7 * PREFILL_LAYERS}
     if counts != expected:
         fail(f"13B prefill launch counts {counts}, expected {expected}")
     if tuple(logits.shape) != (1, PREFILL_TOKENS, cfg.vocab_size) or \
@@ -1047,11 +1067,16 @@ def run_caption(torch):
     last = []
 
     def lm_pre(module, args, kwargs):
-        calls.append([record(), None, args[0].shape[1], args[0].shape[0]])
+        calls.append([record(), None, args[0].shape[1], args[0].shape[0],
+                      dict(_build.launches)])
         last[:] = [args, kwargs]
 
     def lm_post(module, args, out):
         calls[-1][1] = record()
+        before = calls[-1][4]
+        # the launches of this forward, by counter
+        calls[-1][4] = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                        if v != before.get(k, 0)}
         finite.append(torch.isfinite(out[0]).all())
 
     vis = []
@@ -1089,8 +1114,15 @@ def run_caption(torch):
             fail(f"caption tokens out of range or empty: {ids[:10]}")
     if n_fwd < 2 or n_fwd > CAPTION_NEW_TOKENS:
         fail(f"{n_fwd} forward passes")
-    if counts != {"nf4_matmul": NF4_PER_FORWARD * n_fwd}:
-        fail(f"launch counts {counts}, expected nf4_matmul = {NF4_PER_FORWARD} x {n_fwd}")
+    if counts != {"nf4_matmul": NF4_PER_FORWARD * n_fwd, "nf4_gemm": NF4_PER_FORWARD,
+                  "nf4_gemv": NF4_PER_FORWARD * (n_fwd - 1)}:
+        fail(f"launch counts {counts}, expected nf4_matmul = {NF4_PER_FORWARD} x {n_fwd}, "
+             f"nf4_gemm {NF4_PER_FORWARD} (prefill), the rest nf4_gemv")
+    prefill_routes = {"nf4_matmul": NF4_PER_FORWARD, "nf4_gemm": NF4_PER_FORWARD}
+    decode_routes = {"nf4_matmul": NF4_PER_FORWARD, "nf4_gemv": NF4_PER_FORWARD}
+    if calls[0][4] != prefill_routes or any(c[4] != decode_routes for c in calls[1:]):
+        fail(f"per-forward launches: prefill {calls[0][4]}, decode "
+             f"{[c[4] for c in calls[1:] if c[4] != decode_routes][:3]}")
     prefill_ms = calls[0][0].elapsed_time(calls[0][1])
     decode_ms = calls[0][1].elapsed_time(end)
     n_decode = n_fwd - 1

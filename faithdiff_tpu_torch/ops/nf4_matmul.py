@@ -1,23 +1,53 @@
 """NF4 dequant-matmul: ``y = x @ dequant(W)``, W half-row packed NF4.
 
 Counterpart of `faithdiff_tpu/ops/nf4_matmul.py` (`_nf4_matvec_kernel`).
-A CUDA tensor goes to the hand-written kernel (`csrc/nf4_matmul.cu`),
-which decodes the packed codes in registers / shared memory so the decoded
+A CUDA tensor goes to the hand-written kernels (`csrc/nf4_matmul.cu`),
+which decode the packed codes in registers / shared memory so the decoded
 weight never reaches device memory; a CPU tensor goes to
 `nf4_matmul_reference`, the same arithmetic in plain torch.
 
 Arithmetic (the TPU kernel's): each code decodes through the 16-entry
 `NF4_CODE` table, is multiplied by its block's absmax in fp32 and rounded
 to x's dtype; products are summed in fp32 and the sum is cast to x's dtype.
+
+Two routes, by the rows M of x: `nf4_gemv` (M <= 8, decode) and
+`nf4_gemm` (the prefill). `plan_nf4_gemv` makes every launch decision of
+the decode route from the shape alone; `nf4_gemv_tiled` walks that
+schedule in plain PyTorch for the tests.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..utils.quantize import NF4_BLOCK, NF4_PACK_HALFROW, NF4Weight, _dequant_nf4_oi
 from . import _build
+
+# decode route: most rows of x, a block's rows (one 16-row mma tile) and
+# warps (they split K), and the card's shared memory a block may use
+# (227 KB). `csrc/nf4_matmul.cu` lays its shared memory out by the same
+# formulas as `gemv_scale_bytes`, `gemv_ring_bytes` and the plan's x bytes
+# and rejects a launch given less; a card test holds the two together.
+GEMV_MAX_M = 8
+GEMV_ROWS = 16
+GEMV_WARPS = 8
+SMEM_LIMIT = 227 * 1024
+# x is staged whole at block start for M >= 4, or up to this many bytes of
+# it; else it goes a piece a lane a step through the warps' rings. Timed
+# both ways on an H100 at the 13B shapes, whole x won at in = 5120 for
+# every M and lost at M = 2-3, in = 13824, where 55-83 KB of x are staged
+# before any work.
+X_WHOLE_BYTES = 32 * 1024
+X_WHOLE_MIN_M = 4
+# K steps (quads) in flight in a warp's shared-memory ring (the kernel's
+# kStages)
+STAGES = 4
+# packed bytes of a row one warp reads in one K step: four lanes (one mma
+# thread group) x one 16-byte vector each
+QUAD_BYTES = 64
 
 
 def nf4_matmul_reference(x: torch.Tensor, q: NF4Weight) -> torch.Tensor:
@@ -27,9 +57,142 @@ def nf4_matmul_reference(x: torch.Tensor, q: NF4Weight) -> torch.Tensor:
     return torch.matmul(x.float(), w.float().T).to(x.dtype)
 
 
+class Nf4GemvPlan(NamedTuple):
+    """How one decode-route launch runs. A block owns GEMV_ROWS output rows
+    (one mma tile) over the whole K; its GEMV_WARPS warps split K by quads
+    (64 packed bytes of a row: 16-byte vectors 4q .. 4q+3, one per lane of
+    an mma thread group), warp w taking quads w, w + W, ... (at most
+    `quads_per_warp`), and fold their fp32 partial tiles in warp order. A
+    warp takes a quad a step (block b from step b mod its step count on),
+    with the next STAGES - 1 quads' weights in flight to shared memory; x
+    and the block's absmax rows are staged there once."""
+    m: int
+    in_f: int
+    out_f: int
+    x_whole: bool            # x staged whole at block start (else through the rings)
+    full: bool               # no row past out_f, no partial last quad: no masks
+    quads: int               # ceil(in / 128): quads of a packed row
+    quads_per_warp: int
+    grid: int
+    scale_bytes: int         # the block's absmax rows, f32, odd row stride
+    x_bytes: int             # x staged whole: m rows, each padded by 16 bytes
+    ring_bytes: int          # the warps' rings of packed vectors (and x)
+    fold_bytes: int          # the warps' partial tiles, fp32 [16, 8]
+    smem_bytes: int          # dynamic shared memory: scales + x + rings, or the fold
+
+    rows = GEMV_ROWS
+    warps = GEMV_WARPS
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    def warp_quads(self, w: int) -> range:
+        """The quads warp w takes."""
+        return range(w, self.quads, self.warps)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemv_ring_bytes(m: int, x_whole: bool) -> int:
+    """The warps' rings of STAGES K steps: a step holds the 2 packed
+    vectors (rows g, g + 8) of each of 32 lanes and, unless x is staged
+    whole, four 16-byte pieces of x (16 high and 16 low columns of a
+    vector) for each of the 4 m lanes whose mma row g < m."""
+    return GEMV_WARPS * STAGES * (2 * 32 + (0 if x_whole else 4 * 4 * m)) * 16
+
+
+def gemv_scale_bytes(in_f: int) -> int:
+    """The block's absmax rows in shared memory: an odd row stride (the 8
+    rows a thread group reads fall in 8 banks), padded to 16 bytes."""
+    return _cdiv(GEMV_ROWS * ((in_f // NF4_BLOCK) | 1) * 4, 16) * 16
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_nf4_gemv(m: int, in_f: int, out_f: int) -> Nf4GemvPlan:
+    """The decode route's launch plan for x [m, in_f] (1 <= m <= 8) against
+    an [out_f, in_f / 2] half-row packed weight. x is staged whole where it
+    fits shared memory and m >= X_WHOLE_MIN_M or it is at most
+    X_WHOLE_BYTES, else through the rings; raises where neither fits. The
+    warps take the row's quads in turn (a warp past the last quad has
+    nothing to do). Cached by its arguments."""
+    if not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"plan_nf4_gemv: m={m}, the decode route takes 1..{GEMV_MAX_M}")
+    if in_f <= 0 or in_f % NF4_BLOCK or out_f <= 0:
+        raise ValueError(f"plan_nf4_gemv: in={in_f}, out={out_f}")
+    scale = gemv_scale_bytes(in_f)
+    whole = m * (2 * in_f + 16)           # x rows, each padded by 16 bytes
+    x_whole = (scale + whole + gemv_ring_bytes(m, True) <= SMEM_LIMIT
+               and (m >= X_WHOLE_MIN_M or 2 * m * in_f <= X_WHOLE_BYTES))
+    x_bytes = whole if x_whole else 0
+    ring = gemv_ring_bytes(m, x_whole)
+    if scale + x_bytes + ring > SMEM_LIMIT:
+        raise ValueError(f"plan_nf4_gemv: {scale + ring} bytes of shared memory at m={m}, "
+                         f"in={in_f}, more than {SMEM_LIMIT}")
+    quads = _cdiv(in_f // 2, QUAD_BYTES)
+    fold = GEMV_WARPS * GEMV_ROWS * 8 * 4
+    return Nf4GemvPlan(m=m, in_f=in_f, out_f=out_f, x_whole=x_whole,
+                       full=out_f % GEMV_ROWS == 0 and (in_f // 2) % QUAD_BYTES == 0,
+                       quads=quads, quads_per_warp=_cdiv(quads, GEMV_WARPS),
+                       grid=_cdiv(out_f, GEMV_ROWS), scale_bytes=scale, x_bytes=x_bytes,
+                       ring_bytes=ring, fold_bytes=fold,
+                       smem_bytes=max(scale + x_bytes + ring, fold))
+
+
+def gemv_k_order(plan: Nf4GemvPlan, w: int) -> torch.Tensor:
+    """Columns of the [out, in] weight (and of x) in the order warp w's
+    mma instructions take them as k: by quad (one a step), then for each
+    4-byte word of a lane's vector one mma over the high-nibble columns and
+    one over the low-nibble columns; within an mma, k slots 2t, 2t+1 are
+    columns 4j, 4j+1 of lane t's word j and slots 8+2t, 9+2t columns
+    4j+2, 4j+3. Vectors past the packed row (a partial last quad) are left
+    out, as the kernel zeroes them."""
+    half = plan.in_f // 2
+    n_vec = half // 16
+    cols = []
+    for quad in plan.warp_quads(w):
+        for word in range(4):
+            for base in (0, half):
+                for slots in ((0, 1), (2, 3)):
+                    for tig in range(4):
+                        vec = 4 * quad + tig
+                        if vec < n_vec:
+                            c = base + 16 * vec + 4 * word
+                            cols += [c + slots[0], c + slots[1]]
+    return torch.tensor(cols, dtype=torch.long)
+
+
+def nf4_gemv_tiled(x: torch.Tensor, q: NF4Weight, plan: Nf4GemvPlan) -> torch.Tensor:
+    """The decode route's schedule in plain PyTorch (tests only): each
+    warp's quads, gathered in the kernel's lane-to-column order, give an
+    fp32 partial [M, out] from the weights decoded as the kernel decodes
+    them; the partials are folded in warp order and the sum cast to x's
+    dtype. Row blocks are independent, so all rows go at once. The order
+    of the fp32 sums inside a warp's partial (the kernel's step rotation,
+    the mma's own) is not reproduced."""
+    in_f, out_f = q.shape
+    if (plan.in_f, plan.out_f) != (in_f, out_f) or x.shape[-1] != in_f:
+        raise ValueError(f"nf4_gemv_tiled: plan for {(plan.in_f, plan.out_f)}, "
+                         f"x {tuple(x.shape)}, weight {q.shape}")
+    x2 = x.reshape(-1, in_f)
+    if x2.shape[0] != plan.m:
+        raise ValueError(f"nf4_gemv_tiled: {x2.shape[0]} rows, plan for {plan.m}")
+    w = _dequant_nf4_oi(q, torch.float32).to(x.dtype).float()     # [out, in]
+    acc = None
+    for warp in range(plan.warps):
+        k = gemv_k_order(plan, warp)
+        part = torch.matmul(x2.float()[:, k], w[:, k].T)
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype).reshape(x.shape[:-1] + (out_f,))
+
+
 def nf4_matmul_kernel(x: torch.Tensor, q: NF4Weight) -> torch.Tensor:
     """Launch the CUDA kernel on x [..., in] (contiguous bf16 on the card)
-    -> bf16 [..., out]. Raises on anything the kernel does not take."""
+    -> bf16 [..., out]: the decode route for up to 8 rows of x (planned by
+    `plan_nf4_gemv`), the tiled product above. Raises on anything the
+    kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"nf4_matmul_kernel: x on {x.device}, the kernel runs on CUDA")
     if int(q.pack_format) != NF4_PACK_HALFROW:
@@ -55,7 +218,7 @@ def nf4_matmul_kernel(x: torch.Tensor, q: NF4Weight) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"nf4_matmul_kernel: {name} is not contiguous")
         if t.data_ptr() % 16:
-            # packed rows and x halves move as 16-byte vectors
+            # packed rows and x move as 16-byte vectors
             raise ValueError(f"nf4_matmul_kernel: {name} is not 16-byte aligned")
     lead = x.shape[:-1]
     m = x.numel() // in_f
@@ -63,13 +226,24 @@ def nf4_matmul_kernel(x: torch.Tensor, q: NF4Weight) -> torch.Tensor:
     if m == 0 or out_f == 0:
         return out
     lib = _build.load("nf4_matmul")
-    fn = lib.fd_nf4_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    route = "nf4_gemv" if m <= GEMV_MAX_M else "nf4_gemm"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
-                  out.data_ptr(), m, in_f, out_f, stream)
-    _build.check(lib, code, "nf4_matmul")
+        if route == "nf4_gemv":
+            p = plan_nf4_gemv(m, in_f, out_f)
+            fn = lib.fd_nf4_gemv
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            code = fn(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(), out.data_ptr(),
+                      m, in_f, out_f, int(p.full), int(p.x_whole), p.grid, p.smem_bytes,
+                      stream)
+        else:
+            fn = lib.fd_nf4_gemm
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            code = fn(x.data_ptr(), packed.data_ptr(), absmax.data_ptr(),
+                      out.data_ptr(), m, in_f, out_f, stream)
+    _build.check(lib, code, route)
     _build.launches["nf4_matmul"] += 1
+    _build.launches[route] += 1
     return out

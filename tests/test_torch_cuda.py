@@ -5,6 +5,11 @@ Imports no JAX, so the file also runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import ctypes
+import re
+import shutil
+import subprocess
+
 import pytest
 import torch
 
@@ -21,8 +26,10 @@ from faithdiff_tpu_torch.ops.groupnorm import (GroupNormLaunch, group_norm,
                                                group_norm_reference,
                                                group_stats_reference,
                                                plan_group_norm)
-from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_matmul_kernel,
-                                                nf4_matmul_reference)
+from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_gemv_tiled,
+                                                nf4_matmul_kernel,
+                                                nf4_matmul_reference,
+                                                plan_nf4_gemv)
 from faithdiff_tpu_torch.utils.quantize import (NF4_PACK_PAIRWISE, NF4Weight,
                                                 nf4_matmul, quantize_nf4)
 
@@ -353,6 +360,108 @@ def test_nf4_matmul_matches_plain(cuda, m, in_f, out_f):
     # can move the one bf16 rounding of the output by a step
     err = (out.float() - ref.float()).abs()
     assert bool((err <= 1e-2 * (1 + ref.float().abs())).all())
+
+
+def _one_bf16_step(out, walk):
+    # both round fp32 sums of the same bf16 products once, in other orders
+    big = torch.maximum(out.abs(), walk.abs()).clamp_min(2.0 ** -126)
+    return bool(((out - walk).abs() <= torch.exp2(torch.floor(torch.log2(big)) - 7)).all())
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("in_f,out_f", [(64, 128), (192, 40), (512, 288), (576, 40)])
+def test_nf4_decode_route_matches_plain_and_its_tile_walk(cuda, m, in_f, out_f):
+    """The decode route (M <= 8): against the plain version, within one
+    bf16 step of the plain walk of its schedule, the same bits on two
+    calls, and one launch counted on its route."""
+    q, g = _nf4(cuda, in_f, out_f, seed=m)
+    x = torch.randn((m, in_f), generator=g, device=cuda).bfloat16()
+    _build.launches.clear()
+    out = nf4_matmul_kernel(x, q)
+    again = nf4_matmul_kernel(x, q)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"nf4_matmul": 2, "nf4_gemv": 2}
+    assert torch.equal(out, again)
+    ref = nf4_matmul_reference(x, q)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 1e-2 * (1 + ref.float().abs())).all())
+    walk = nf4_gemv_tiled(x, q, plan_nf4_gemv(m, in_f, out_f)).float()
+    assert _one_bf16_step(out.float(), walk)
+
+
+@pytest.mark.parametrize("m,in_f,out_f,x_whole", [
+    (8, 576, 40, True), (4, 5120, 72, True),
+    (2, 13824, 40, False),               # x too large to stage whole at m = 2
+    (2, 8256, 40, False)])               # and ragged rows, a partial last quad
+def test_nf4_decode_route_with_x_whole_and_through_the_rings(cuda, m, in_f, out_f, x_whole):
+    """Both ways of staging x, each where the plan picks it (whole at block
+    start, a piece a lane a step through the rings): the plain version's
+    result within tolerance, the same bits on two calls, within one bf16
+    step of the plain walk of the schedule."""
+    plan = plan_nf4_gemv(m, in_f, out_f)
+    assert plan.x_whole == x_whole
+    q, g = _nf4(cuda, in_f, out_f, seed=m)
+    x = torch.randn((m, in_f), generator=g, device=cuda).bfloat16()
+    out = nf4_matmul_kernel(x, q)
+    assert torch.equal(out, nf4_matmul_kernel(x, q))
+    ref = nf4_matmul_reference(x, q).float()
+    assert bool(((out.float() - ref).abs() <= 1e-2 * (1 + ref.abs())).all())
+    assert _one_bf16_step(out.float(), nf4_gemv_tiled(x, q, plan).float())
+
+
+def test_nf4_decode_entry_point_holds_the_plans_shared_memory(cuda):
+    """The kernel lays shared memory out by its own copy of the plan's
+    formulas: it takes the plan's bytes and grid, and refuses 16 bytes
+    less or another grid, in both x modes, with and without masks."""
+    lib = _build.load("nf4_matmul")
+    fn = lib.fd_nf4_gemv
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for m, in_f, out_f in ((8, 576, 40), (2, 5120, 64), (2, 13824, 48), (3, 8256, 40)):
+        p = plan_nf4_gemv(m, in_f, out_f)
+        q, g = _nf4(cuda, in_f, out_f)
+        x = torch.randn((m, in_f), generator=g, device=cuda).bfloat16()
+        y = torch.empty((m, out_f), dtype=torch.bfloat16, device=cuda)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch(grid, smem):
+            return fn(x.data_ptr(), q.packed.data_ptr(), q.absmax.data_ptr(), y.data_ptr(),
+                      m, in_f, out_f, int(p.full), int(p.x_whole), grid, smem, stream)
+
+        assert launch(p.grid, p.smem_bytes) == 0, p
+        torch.cuda.synchronize()
+        assert torch.equal(y, nf4_matmul_kernel(x, q))
+        assert launch(p.grid, p.smem_bytes - 16) != 0, p
+        assert launch(p.grid + 1, p.smem_bytes) != 0, p
+        assert launch(p.grid - 1, p.smem_bytes) != 0, p
+
+
+def test_nf4_decode_kernel_keeps_its_register_cap(cuda):
+    """`__launch_bounds__(256, 4)`: four blocks of 256 threads an SM leave
+    each lane 65,536 / 1,024 = 64 registers; every instance of the decode
+    kernel fits them with no local memory (spills)."""
+    lib = _build.build_all()["nf4_matmul"]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    # "Function <name>:" then, on its own line, "REG:n STACK:n SHARED:n LOCAL:n ..."
+    usage = {name: dict(re.findall(r"(\w+):(\d+)", fields)) for name, fields in
+             re.findall(r"Function (\S*nf4_gemv_kernel\S*):\s*([^\n]*)", dump)}
+    assert len(usage) == 4, dump                 # (full, x_whole) in {0, 1}^2
+    for name, use in usage.items():
+        assert {"REG", "STACK", "LOCAL"} <= use.keys(), dump
+        assert int(use["REG"]) <= 65536 // (4 * plan_nf4_gemv(1, 64, 16).threads), (name, use)
+        assert int(use["STACK"]) == 0 and int(use["LOCAL"]) == 0, (name, use)
+
+
+def test_nf4_matmul_counts_its_route(cuda):
+    q, g = _nf4(cuda, 576, 40)
+    for m, route in ((1, "nf4_gemv"), (8, "nf4_gemv"), (17, "nf4_gemm")):
+        x = torch.randn((m, 576), generator=g, device=cuda).bfloat16()
+        _build.launches.clear()
+        nf4_matmul_kernel(x, q)
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {"nf4_matmul": 1, route: 1}
 
 
 def test_nf4_matmul_rejects_what_it_does_not_take(cuda):
