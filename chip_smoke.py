@@ -48,8 +48,9 @@
    checks its launches.
 6. Holds the NF4 dequant-matmul kernel against its
    plain version at the 13B captioner's shapes (M = 1, 2, 4, 8 on the
-   decode route, 640 and the caption's own prefill M, 2 x the prompt
-   length, on the tiled route), with its bound, the time over the bound,
+   decode route; 16, a decode step of 16 images, 640 and the caption's own
+   prefill M, 2 x the prompt length, on the prefill route), with its
+   bound, the time over the bound,
    the route that served it, the same bits on two calls and, as context
    only, a bf16 matmul against the decoded weight.
 7. Holds a tiny nf4 captioner LLaMA on the card (kernel) against the same
@@ -61,9 +62,10 @@
    weights; the agent's defaults: temperature 0.2, top-p 0.7, 512 new
    tokens) and checks the prompt, the tokens, finite logits and that the
    NF4 kernel ran 280 times (7 projections x 40 layers) per forward pass,
-   on the tiled route for the prefill and the decode route for each
+   on the prefill route for the prefill and the decode route for each
    decode forward;
-   then profiles the last decode step as step 5 profiles the UNet.
+   then profiles the prefill and the last decode step as step 5 profiles
+   the UNet.
 9. Prints the card line, a JSON line listing every ported kernel, then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed.
@@ -119,11 +121,11 @@ LARGE_PIXELS, LARGE_TILES = (2048, 3072), 15
 STEPS = 20
 
 # the 13B LLaMA projections (in, out): q/k/v/o, gate/up, down; M = B at
-# decode (the decode route takes up to 8) and B * prompt length at
-# prefill. check_nf4 adds the caption's own prefill M (caption_prefill_m),
-# whose last 64-row tile is partial.
+# decode (the decode route takes up to 8, the prefill route a batch of 16)
+# and B * prompt length at prefill. check_nf4 adds the caption's own
+# prefill M (caption_prefill_m), whose last x tile is partial.
 NF4_SHAPES = [(5120, 5120), (5120, 13824), (13824, 5120)]
-NF4_M = [1, 2, 4, 8, 640]
+NF4_M = [1, 2, 4, 8, 16, 640]
 NF4_GEMV_MAX_M = 8                       # M of the decode route: nf4_gemv, above nf4_gemm
 NF4_REPORT = (1, 5120, 13824)            # (M, in, out) of the kernels entry
 CAPTION_IMAGES = [(768, 1024), (1024, 768)]
@@ -927,7 +929,7 @@ def caption_prefill_m() -> int:
 def check_caption_small(torch):
     """A tiny nf4 LLaMA on the card (the NF4 kernel, bf16) against the same
     weights on the CPU (the plain version, fp32): prefill logits (the
-    tiled route, M = 24) and one-row logits (the decode route)."""
+    prefill route, M = 24) and one-row logits (the decode route)."""
     import dataclasses
 
     from faithdiff_tpu_torch.captioner.llama import (LlamaConfig,
@@ -1064,12 +1066,14 @@ def run_caption(torch):
         ev.record()
         return ev
 
-    last = []
+    first, last = [], []
 
     def lm_pre(module, args, kwargs):
         calls.append([record(), None, args[0].shape[1], args[0].shape[0],
                       dict(_build.launches)])
         last[:] = [args, kwargs]
+        if not first:
+            first[:] = [args, kwargs]
 
     def lm_post(module, args, out):
         calls[-1][1] = record()
@@ -1139,8 +1143,9 @@ def run_caption(torch):
     print("caption", json.dumps(result), flush=True)
     for c in captions:
         print(f"  caption ({len(c)} chars): {c[:100]!r}", flush=True)
-    # the last decode step once more (its cache slot is rewritten in place
-    # with the same values)
+    # the prefill and the last decode step once more (their cache slots are
+    # rewritten in place with the same values)
+    profile_call(torch, "profile_prefill", agent.llama, *first)
     profile_call(torch, "profile_decode", agent.llama, *last)
     return counts
 

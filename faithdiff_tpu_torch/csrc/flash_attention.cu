@@ -96,32 +96,11 @@ struct Geometry {
   uint64_t box[4];
 };
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime at first use, so
-// the library links against nothing but the runtime.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess
-        || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A bf16 tensor map with the 128-byte swizzle; rows past an extent read as
 // zeros and are not written.
 cudaError_t make_map(CUtensorMap* map, const void* base, const Geometry& g,
                      int box_rows) {
-  const EncodeTiled encode = encode_tiled();
+  const fd_hopper::EncodeTiled encode = fd_hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (g.box[0] != fd_flash::kPanelCols || g.box[1] != 1
       || g.box[2] != static_cast<uint64_t>(box_rows) || g.box[3] != 1)

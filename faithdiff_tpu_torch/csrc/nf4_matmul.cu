@@ -1,7 +1,7 @@
 // NF4 dequant-matmul for Hopper (sm_90a): y[M, out] = x[M, in] . dequant(W)^T,
 // x and y bf16, W NF4 half-row packed.
 //
-// Replaces: faithdiff_tpu/ops/nf4_matmul.py::_nf4_matvec_kernel (the Pallas
+// Replaces: faithdiff_tpu/ops/nf4_matmul.py:73 _nf4_matvec_kernel (the Pallas
 // TPU kernel launched by _nf4_matmul_fused_2d), which runs every LLaMA
 // projection of the load_4bit captioner: (in, out) in {(5120, 5120) q/k/v/o,
 // (5120, 13824) gate/up, (13824, 5120) down}, M = B * S at prefill, M = B
@@ -53,24 +53,47 @@
 //   into one bf16x2 register. The warps' fp32 [16, 8] partial tiles are
 //   folded in shared memory in warp order: one launch, no atomics, the
 //   same bits on every run.
-// - nf4_gemm_kernel (M > 8, the prefill): a tiled product. A block of 8
-//   warps owns a 64 x 128 output tile and walks the packed columns 32
-//   bytes at a time (= 64 weight columns: 32 from the high nibbles, 32
-//   from the low). Per step it decodes the [128, 64] weight tile into
-//   shared memory as bf16, stages the matching x columns, and multiplies
-//   with WMMA 16x16x16 bf16 fragments into fp32 accumulators (each warp
-//   32 x 32). No cp.async / TMA / wgmma yet: loads are not overlapped with
-//   the tensor-core work.
+// - nf4_gemm_kernel (M > 8: the prefill, decode batches of 9+ images). What
+//   bounds it: operations from M ~ 85 rows of x on (2 * M flops a weight
+//   against ~0.56 bytes of codes and scales a weight, the ~295 flop/byte
+//   ridge), so the tensor cores have to stay fed and the decode must not
+//   grow with M. A block owns 128 weight rows x n_tile rows of x (16..256,
+//   ops/nf4_matmul.plan_nf4_gemm picks it by waves on 132 SMs) over the
+//   whole K and computes y^T = W . x^T for them: two consumer warpgroups of
+//   64 weight rows multiply with wgmma m64nNk16, A (the decoded weights) in
+//   registers and B (x) read from shared memory as the K-major operand, and
+//   one producer warp keeps a ring of 2-4 stages full on mbarriers. A K step
+//   is 64 packed bytes of a row: the producer brings in by TMA the x box of
+//   its 64 high-nibble columns and that of its 64 low-nibble columns (two
+//   maps over x's halves, so columns past a half read as zeros: the ragged
+//   last step of in = 64 or 576), the block's [128, 64] packed bytes, and by
+//   cp.async the rows' scales of the step (the low half's first two blocks
+//   where it starts mid-block). A consumer lane decodes its A fragments
+//   (rows g and g + 8, k = 2t, 2t+1, 2t+8, 2t+9 of each 16-column chunk)
+//   straight into registers: the same packed bytes give the high-nibble and
+//   the low-nibble chunk; the table lookup is the decode route's (fp32
+//   table at a 256-aligned address, one PRMT per load address, one fp32
+//   multiply, two results rounded into one bf16x2), so each weight is
+//   decoded once per n_tile rows of x and no decoded weight is ever
+//   written to shared or device memory. (A table of a row's 16 scaled
+//   bf16 codes built in registers each step and looked up with PRMT, no
+//   shared loads, ran 3-7% slower at M = 640 and 1244 on an NVIDIA H100
+//   80GB HBM3 at 700 W: 31% more instructions.) The next step is decoded
+//   while the current step's wgmmas run. The epilogue rounds to bf16 and
+//   goes through shared memory to leave as rows of y. Rows past M or out_f
+//   read zeros and are not stored. One block an output tile over all of K:
+//   the same bits on every call.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace fd_hopper;
 
 __constant__ float kCode[16] = {
     -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
@@ -365,121 +388,340 @@ nf4_gemv_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
 }
 
 // ---------------------------------------------------------------- M > 8
-constexpr int kTileM = 64;
-constexpr int kTileN = 128;
-constexpr int kStepBytes = 32;                 // packed columns per step
-constexpr int kStepK = 2 * kStepBytes;         // weight columns per step
-constexpr int kTileWarps = 8;                  // 2 (M) x 4 (N), 32 x 32 each
-constexpr int kTileThreads = kTileWarps * 32;
-// padded rows: 144-byte bf16 rows and 528-byte fp32 rows keep 16-byte
-// stores and 32-byte WMMA tile pointers aligned and spread the banks
-constexpr int kLdh = kStepK + 8;
-constexpr int kLdc = kTileN + 4;
-constexpr int kXBytes = kTileM * kLdh * 2;
-constexpr int kWBytes = kTileN * kLdh * 2;
-constexpr int kCBytes = kTileM * kLdc * 4;
-constexpr int kSmemBytes = (kXBytes + kWBytes > kCBytes) ? kXBytes + kWBytes : kCBytes;
+constexpr int kGemmRows = 128;               // weight rows a block: two warpgroups of 64
+constexpr int kGemmConsumers = 2;
+constexpr int kGemmThreads = (kGemmConsumers + 1) * 128;   // + the producer warpgroup
+constexpr int kStepBytes = 64;               // packed bytes of a row a K step
+constexpr int kXRowBytes = 128;              // a row of an x box: 64 bf16, the 128-byte swizzle
+constexpr int kPackedBytes = kGemmRows * kStepBytes;
+constexpr int kScaleRowBytes = 16;           // a row's (high, low, next low, -) f32 scales
+constexpr int kScaleBytes = kGemmRows * kScaleRowBytes;
+constexpr int kEpiPitch = 272;               // bytes of a y row in the epilogue's transpose
+constexpr int kGemmProducerRegs = 40;
+constexpr int kGemmConsumerRegs = 232;       // 2 * 232 + 40 = 504 = 3 * 168
+constexpr int kGemmSmemLimit = 227 * 1024 - 1024;   // dynamic; the rest for the code table
 
-__global__ void __launch_bounds__(kTileThreads)
-nf4_gemm_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
-                const float* __restrict__ absmax, bf16* __restrict__ y,
-                int m_rows, int in_f, int out_f) {
-  // x and W tiles during the main loop; the fp32 output tile afterwards
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __shared__ float s_code[16];
-  bf16* s_x = reinterpret_cast<bf16*>(smem);
-  bf16* s_w = reinterpret_cast<bf16*>(smem + kXBytes);
-  float* s_c = reinterpret_cast<float*>(smem);
+// A ring stage: the x box of the step's high-nibble columns and that of its
+// low-nibble columns ([n rows][64 cols] bf16 each, 128-byte swizzle), the
+// block's packed bytes of the step ([128 rows][64 bytes], 64-byte swizzle)
+// and its rows' scales. Every offset is a multiple of 1024.
+__host__ __device__ constexpr int gemm_stage_bytes(int n) {
+  return 2 * n * kXRowBytes + kPackedBytes + kScaleBytes;
+}
+
+// dynamic shared memory: 1024 bytes of alignment slack, the ring, and a full
+// and an empty mbarrier a stage; the epilogue's transpose overlays the ring
+__host__ __device__ constexpr int gemm_smem_bytes(int n, int stages) {
+  return 1024 + stages * gemm_stage_bytes(n) + 16 * stages;
+}
+
+__device__ __forceinline__ uint32_t lds32u(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float4 lds128f(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr));
+  return v;
+}
+
+// cp.async of 4 bytes, or a zero where `copy` is false (src-size 0)
+__device__ __forceinline__ void cp_async4_or_zero(uint32_t dst, const void* src, bool copy) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(copy ? 4 : 0) : "memory");
+}
+
+// one arrival on `bar` once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The descriptor of the operand `bytes` further on in shared memory than the
+// one `d` describes: only the start address field (16-byte units, the low
+// 14 bits) moves, and a shared address stays below 2^18, so a 32-bit add on
+// the low word does it (where a descriptor built anew costs ~6 instructions)
+__device__ __forceinline__ uint64_t desc_plus(uint64_t d, uint32_t bytes) {
+  const uint32_t lo = static_cast<uint32_t>(d) + (bytes >> 4);
+  return (d & 0xFFFFFFFF00000000ull) | lo;
+}
+
+// acc (+)= A . B^T over the tile's kN rows of x (B K-major in shared memory,
+// 128-byte rows, `b` the descriptor of its first row), as wgmma widths 128,
+// 64, 32, 16, widest first; the accumulator fragments of the pieces lie one
+// after another in acc
+template <int kN, int kDone = 0>
+__device__ __forceinline__ void wgmma_x_rows(float (&acc)[kN / 2], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  constexpr int kLeft = kN - kDone;
+  if constexpr (kLeft > 0) {
+    constexpr int kW = kLeft >= 128 ? 128 : kLeft >= 64 ? 64 : kLeft >= 32 ? 32 : 16;
+    const uint64_t desc = desc_plus(b, kDone * kXRowBytes);
+    float* d = acc + kDone / 2;
+    if constexpr (kW == 128)
+      wgmma_rs_kmajor_n128(*reinterpret_cast<float(*)[64]>(d), a[0], a[1], a[2], a[3], desc);
+    else if constexpr (kW == 64)
+      wgmma_rs_kmajor_n64(*reinterpret_cast<float(*)[32]>(d), a[0], a[1], a[2], a[3], desc);
+    else if constexpr (kW == 32)
+      wgmma_rs_kmajor_n32(*reinterpret_cast<float(*)[16]>(d), a[0], a[1], a[2], a[3], desc);
+    else
+      wgmma_rs_kmajor_n16(*reinterpret_cast<float(*)[8]>(d), a[0], a[1], a[2], a[3], desc);
+    wgmma_x_rows<kN, kDone + kW>(acc, a, b);
+  }
+}
+
+// The A fragments of one K step for lane (g, t) of a consumer warp: rows
+// `row` and row + 8 of the block (g and g + 8 of the warp's 16), at k = 2t,
+// 2t+1 (a0, a1) and 2t+8, 2t+9 (a2, a3) of each 16-column chunk j:
+// a[4j ..] the high-nibble chunks (x columns c0 + 16j ..), a[16 + 4j ..] the
+// low-nibble ones (in/2 + c0 + 16j ..). The four packed bytes a lane needs
+// of a chunk (2t, 2t+1, 2t+8, 2t+9) come from two 32-bit loads and one PRMT;
+// the 64-byte swizzle of the packed box moves chunk j of row r to chunk
+// j ^ ((r >> 1) & 3), which puts a warp's 8 rows in 16 different banks.
+__device__ __forceinline__ void decode_step(uint32_t (&a)[32], uint32_t packed, uint32_t scales,
+                                            uint32_t table, int row, int t, bool lo_split) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row + 8 * rr;
+    const float4 sc = lds128f(scales + r * kScaleRowBytes);
+    const uint32_t base = packed + r * kStepBytes + 4 * (t >> 1);
+    const int sw = (r >> 1) & 3;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t chunk = base + ((j ^ sw) << 4);
+      const uint32_t w = __byte_perm(lds32u(chunk), lds32u(chunk + 8),
+                                     (t & 1) ? 0x7632 : 0x5410);
+      // the low half starts mid-block when in / 2 % 64 == 32: its chunks
+      // 2 and 3 then belong to the next block
+      const float s_lo = (lo_split && j >= 2) ? sc.z : sc.y;
+      decode_word<true>(w, table, sc.x, a[4 * j + rr], a[4 * j + 2 + rr]);
+      decode_word<false>(w, table, s_lo, a[16 + 4 * j + rr], a[16 + 4 * j + 2 + rr]);
+    }
+  }
+}
+
+// One K step of a consumer warpgroup: the step's 8 wgmmas (4 high-nibble
+// and 4 low-nibble chunks) from a[kBuf], and while they run the next step's
+// A fragments decoded into a[kBuf ^ 1]; the stage is released once the
+// wgmmas that read it are done.
+template <int kN, int kBuf>
+__device__ __forceinline__ void consume_step(float (&acc)[kN / 2], uint32_t (&a)[2][32],
+                                             int s, int steps, int stages, uint32_t ring,
+                                             uint32_t bar_full, uint32_t bar_empty,
+                                             uint32_t table, int row, int t, int lane,
+                                             bool lo_split) {
+  constexpr uint32_t kStage = gemm_stage_bytes(kN);
+  const uint32_t st = ring + (s % stages) * kStage;
+  const uint64_t x_desc = smem_desc(st, 16, 1024);
+  fence_registers(acc);
+  fence_registers(a[kBuf]);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t(&frag)[4] = *reinterpret_cast<const uint32_t(*)[4]>(&a[kBuf][4 * j]);
+    // chunk j % 4 of the high (j < 4) or the low x box: 32 bytes a chunk
+    wgmma_x_rows<kN>(acc, frag, desc_plus(x_desc, (j / 4) * kN * kXRowBytes + (j % 4) * 32));
+  }
+  wgmma_commit();
+  if (s + 1 < steps) {
+    const int nxt = (s + 1) % stages;
+    mbar_wait(bar_full + 8 * nxt, ((s + 1) / stages) & 1);
+    const uint32_t nst = ring + nxt * kStage;
+    decode_step(a[kBuf ^ 1], nst + 2 * kN * kXRowBytes, nst + 2 * kN * kXRowBytes + kPackedBytes,
+                table, row, t, lo_split);
+  }
+  wgmma_wait<0>();
+  fence_registers(acc);
+  fence_registers(a[kBuf]);
+  if (lane == 0) mbar_arrive(bar_empty + 8 * (s % stages));
+}
+
+// The prefill route. A block owns 128 weight rows (two consumer warpgroups
+// of 64) x kN rows of x over all of K and computes y^T for them: block b
+// takes weight tile b / m_tiles and x tile b % m_tiles, so the blocks in
+// flight share a few weight tiles in L2.
+template <int kN>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+nf4_gemm_kernel(const __grid_constant__ CUtensorMap map_xh,
+                const __grid_constant__ CUtensorMap map_xl,
+                const __grid_constant__ CUtensorMap map_w, const float* __restrict__ absmax,
+                bf16* __restrict__ y, int m, int in_f, int out_f, int m_tiles, int stages,
+                int full) {
+  static_assert(kN % 16 == 0 && kN >= 16 && kN <= 256, "x rows a tile");
+  constexpr uint32_t kStage = gemm_stage_bytes(kN);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(256) float s_code[16];
+  const uint32_t s_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (s_base - smem_u32(smem_raw));
+  const uint32_t bar_full = s_base + stages * kStage;
+  const uint32_t bar_empty = bar_full + 8 * stages;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = (warp / 4) * 32;              // warp's rows in the tile
-  const int wn = (warp % 4) * 32;              // warp's columns in the tile
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
+  const int group = tid / 128;
   const int half = in_f / 2;
   const int n_blk = in_f / kBlock;
+  const int steps = (half + kStepBytes - 1) / kStepBytes;
+  const int w_tile = blockIdx.x / m_tiles;
+  const int m0 = (blockIdx.x - w_tile * m_tiles) * kN;
+  const int row0 = w_tile * kGemmRows;
+
   if (tid < 16) s_code[tid] = kCode[tid];
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int c0 = 0; c0 < half; c0 += kStepBytes) {
-    __syncthreads();   // the previous step's tiles are no longer read
-    // x: row r, columns [c0, c0 + 32) then [half + c0, half + c0 + 32)
-    for (int idx = tid; idx < kTileM * 8; idx += kTileThreads) {
-      const int r = idx / 8;
-      const int part = idx % 8;              // 8 vectors of 8 bf16 per row
-      const int col = (part < 4) ? c0 + part * 8 : half + c0 + (part - 4) * 8;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (m0 + r < m_rows)
-        raw = __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(m0 + r) * in_f + col));
-      *reinterpret_cast<uint4*>(s_x + r * kLdh + part * 8) = raw;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1 + 32);      // the TMA bytes' arrival + 32 lanes' scales
+      mbar_init(bar_empty + 8 * s, kGemmConsumers * 4);   // one arrival a consumer warp
     }
-    // W: row n, 16 packed bytes per thread -> 16 high + 16 low columns
-    for (int idx = tid; idx < kTileN * 2; idx += kTileThreads) {
-      const int n = idx / 2;
-      const int part = idx % 2;
-      uint4 lo4[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-      uint4 hi4[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-      if (n0 + n < out_f) {
-        const size_t row = static_cast<size_t>(n0 + n);
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-            packed + row * half + c0 + part * 16));
-        const float s_hi = __ldg(absmax + row * n_blk + c0 / kBlock);
-        const float s_lo = __ldg(absmax + row * n_blk + (half + c0) / kBlock);
-        const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-        bf16* h = reinterpret_cast<bf16*>(hi4);
-        bf16* l = reinterpret_cast<bf16*>(lo4);
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const uint32_t byte = (words[j / 4] >> (8 * (j % 4))) & 0xffu;
-          h[j] = __float2bfloat16(s_code[byte >> 4] * s_hi);
-          l[j] = __float2bfloat16(s_code[byte & 0xfu] * s_lo);
-        }
-      }
-      bf16* dst = s_w + n * kLdh;
-      *reinterpret_cast<uint4*>(dst + part * 16) = hi4[0];
-      *reinterpret_cast<uint4*>(dst + part * 16 + 8) = hi4[1];
-      *reinterpret_cast<uint4*>(dst + kStepBytes + part * 16) = lo4[0];
-      *reinterpret_cast<uint4*>(dst + kStepBytes + part * 16 + 8) = lo4[1];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kStepK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], s_x + (wm + i * 16) * kLdh + kk * 16, kLdh);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], s_w + (wn + j * 16) * kLdh + kk * 16, kLdh);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+    mbar_init_fence();
   }
-
-  __syncthreads();   // s_c overlays the x / W tiles
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s_c + (wm + i * 16) * kLdc + wn + j * 16, acc[i][j], kLdc,
-                              wmma::mem_row_major);
   __syncthreads();
-  for (int idx = tid; idx < kTileM * kTileN; idx += kTileThreads) {
-    const int r = idx / kTileN;
-    const int c = idx % kTileN;
-    if (m0 + r < m_rows && n0 + c < out_f)
-      y[static_cast<size_t>(m0 + r) * out_f + n0 + c] = __float2bfloat16(s_c[r * kLdc + c]);
+
+  if (group == kGemmConsumers) {
+    // ---- producer: one warp keeps the ring full ----
+    setmaxnreg_dec<kGemmProducerRegs>();
+    if (tid < kGemmConsumers * 128 + 32) {
+      const int lane = tid % 32;
+      for (int s = 0; s < steps; ++s) {
+        const int stage = s % stages;
+        mbar_wait(bar_empty + 8 * stage, ((s / stages) & 1) ^ 1);   // passes on a fresh ring
+        const uint32_t full_bar = bar_full + 8 * stage;
+        const uint32_t st = s_base + stage * kStage;
+        if (lane == 0) {
+          mbar_expect_tx(full_bar, 2 * kN * kXRowBytes + kPackedBytes);
+          tma_load_2d(st, &map_xh, full_bar, s * kStepBytes, m0);
+          tma_load_2d(st + kN * kXRowBytes, &map_xl, full_bar, s * kStepBytes, m0);
+          tma_load_2d(st + 2 * kN * kXRowBytes, &map_w, full_bar, s * kStepBytes, row0);
+        }
+        // the scales of the step: block s for the high columns, the blocks
+        // of the low columns' first and (if it starts mid-block) next 32;
+        // zeros past out_f or past the row's blocks
+        const int lo = (half + s * kStepBytes) / kBlock;
+        const uint32_t sc = st + 2 * kN * kXRowBytes + kPackedBytes;
+#pragma unroll
+        for (int i = 0; i < kGemmRows / 32; ++i) {
+          const int r = lane + 32 * i;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const int blk = c == 0 ? s : lo + c - 1;
+            const bool ok = row0 + r < out_f && blk < n_blk;
+            cp_async4_or_zero(sc + r * kScaleRowBytes + 4 * c,
+                              absmax + (ok ? static_cast<size_t>(row0 + r) * n_blk + blk : 0),
+                              ok);
+          }
+        }
+        cp_async_arrive_noinc(full_bar);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+  } else {
+    // ---- consumers: 64 weight rows a warpgroup ----
+    setmaxnreg_inc<kGemmConsumerRegs>();
+    const int gtid = tid % 128;
+    const int warp = gtid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int row = group * 64 + warp * 16 + g;     // block rows row, row + 8
+    const uint32_t table = smem_u32(s_code);
+    const bool lo_split = half % kBlock != 0;
+
+    float acc[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+    uint32_t a[2][32];
+    mbar_wait(bar_full, 0);
+    decode_step(a[0], s_base + 2 * kN * kXRowBytes, s_base + 2 * kN * kXRowBytes + kPackedBytes,
+                table, row, t, lo_split);
+#pragma unroll 1
+    for (int s = 0; s < steps; s += 2) {
+      consume_step<kN, 0>(acc, a, s, steps, stages, s_base, bar_full, bar_empty, table, row, t,
+                          lane, lo_split);
+      if (s + 1 < steps)
+        consume_step<kN, 1>(acc, a, s + 1, steps, stages, s_base, bar_full, bar_empty, table,
+                            row, t, lane, lo_split);
+    }
+
+    // epilogue: y^T fragments -> bf16 [kN rows of x][128 weight rows] in
+    // shared memory (over the ring, which no one reads any more), then out
+    // as rows of y, 16 bytes a thread where the row holds them
+    named_barrier_sync(1, kGemmConsumers * 128);
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      // fragment i: x row 8 (i / 4) + 2t + i % 2, weight row `row` (+ 8)
+      const int n = 8 * (i / 4) + 2 * t + (i & 1);
+      const int r = row + 8 * ((i >> 1) & 1);
+      *reinterpret_cast<bf16*>(smem + n * kEpiPitch + 2 * r) = __float2bfloat16(acc[i]);
+    }
+    named_barrier_sync(1, kGemmConsumers * 128);
+    const int ctid = tid;                            // 0 .. 255
+    const bool vec = out_f % 8 == 0;
+    for (int idx = ctid; idx < kN * (kGemmRows / 8); idx += kGemmConsumers * 128) {
+      const int n = idx / (kGemmRows / 8);
+      const int v = idx - n * (kGemmRows / 8);
+      const int gm = m0 + n;
+      const int col = row0 + 8 * v;
+      if (!full && gm >= m) continue;
+      const uint4 val = *reinterpret_cast<const uint4*>(smem + n * kEpiPitch + 16 * v);
+      bf16* dst = y + static_cast<size_t>(gm) * out_f + col;
+      if (full || (vec && col + 8 <= out_f)) {
+        *reinterpret_cast<uint4*>(dst) = val;
+      } else {
+        const uint32_t words[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (col + k < out_f)
+            dst[k] = __ushort_as_bfloat16(static_cast<unsigned short>(words[k / 2] >> (16 * (k % 2))));
+      }
+    }
   }
+}
+
+// the x rows a tile the entry point takes: every multiple of 16 up to 256
+// (ops/nf4_matmul.GEMM_N_TILES)
+template <int kN>
+cudaError_t launch_gemm(const void* x, const void* packed, const void* absmax, void* y, int m,
+                        int in_f, int out_f, int m_tiles, int stages, int grid, int smem, int full,
+                        cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const int half = in_f / 2;
+  CUtensorMap maps[3];
+  // x's high and low halves: [m rows][in/2 cols] each, rows in_f apart, a
+  // box of 64 columns x kN rows; W: [out rows][in/2 bytes], a box of 64 x
+  // 128. What lies past an extent reads as zeros.
+  const void* bases[3] = {x, static_cast<const bf16*>(x) + half, packed};
+  for (int i = 0; i < 3; ++i) {
+    const bool w = i == 2;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(half),
+                                static_cast<cuuint64_t>(w ? out_f : m)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(w ? half : 2 * in_f)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStepBytes),
+                               static_cast<cuuint32_t>(w ? kGemmRows : kN)};
+    const cuuint32_t elem[2] = {1, 1};
+    const CUresult r = encode(
+        &maps[i], w ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+        const_cast<void*>(bases[i]), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        w ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  }
+  constexpr int kMaxDevices = 64;
+  static int smem_allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > smem_allowed[dev]) {
+    e = cudaFuncSetAttribute(nf4_gemm_kernel<kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return e;
+    smem_allowed[dev] = smem;
+  }
+  nf4_gemm_kernel<kN><<<grid, kGemmThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const float*>(absmax), static_cast<bf16*>(y), m,
+      in_f, out_f, m_tiles, stages, full);
+  return cudaGetLastError();
 }
 
 template <bool kFull, bool kXWhole>
@@ -538,18 +780,40 @@ int fd_nf4_gemv(const void* x, const void* packed, const void* absmax, void* y,
   return static_cast<int>(e);
 }
 
-// The tiled product, for any m. Same operands as fd_nf4_gemv.
+// The prefill route. Same operands as fd_nf4_gemv, any m >= 1. The launch
+// numbers are ops/nf4_matmul.plan_nf4_gemm's: n_tile (x rows a block, a
+// multiple of 16 up to 256), stages (of the ring), grid (exactly
+// ceil(out_f / 128) * ceil(m / n_tile)), dynamic shared memory bytes (at
+// least the ring and its barriers, at most what a block may have) and full
+// (no row of x past m and no weight row past out_f in any tile: the
+// epilogue stores unmasked). A launch that disagrees with the shape is
+// refused. Returns a cudaError_t code.
 int fd_nf4_gemm(const void* x, const void* packed, const void* absmax, void* y,
-                int m, int in_f, int out_f, void* stream) {
-  if (m <= 0 || out_f <= 0 || in_f <= 0 || in_f % kBlock)
+                int m, int in_f, int out_f, int n_tile, int stages, int grid, int smem,
+                int full, void* stream) {
+  if (m <= 0 || out_f <= 0 || in_f <= 0 || in_f % kBlock || n_tile < 16 || n_tile > 256 ||
+      n_tile % 16 || stages < 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int m_tiles = (m + kTileM - 1) / kTileM;
-  if (m_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((out_f + kTileN - 1) / kTileN, m_tiles);
-  nf4_gemm_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(absmax), static_cast<bf16*>(y), m, in_f, out_f);
-  return static_cast<int>(cudaGetLastError());
+  const long m_tiles = (m + n_tile - 1) / n_tile;
+  const long w_tiles = (out_f + kGemmRows - 1) / kGemmRows;
+  const bool is_full = out_f % kGemmRows == 0 && m % n_tile == 0;
+  if (grid != m_tiles * w_tiles || smem < gemm_smem_bytes(n_tile, stages) ||
+      smem > kGemmSmemLimit || (full != 0) != is_full)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_tile) {
+#define FD_GEMM_CASE(N)                                                                  \
+    case N:                                                                              \
+      return static_cast<int>(launch_gemm<N>(x, packed, absmax, y, m, in_f, out_f,       \
+                                             static_cast<int>(m_tiles), stages, grid,    \
+                                             smem, full, s));
+    FD_GEMM_CASE(16) FD_GEMM_CASE(32) FD_GEMM_CASE(48) FD_GEMM_CASE(64)
+    FD_GEMM_CASE(80) FD_GEMM_CASE(96) FD_GEMM_CASE(112) FD_GEMM_CASE(128)
+    FD_GEMM_CASE(144) FD_GEMM_CASE(160) FD_GEMM_CASE(176) FD_GEMM_CASE(192)
+    FD_GEMM_CASE(208) FD_GEMM_CASE(224) FD_GEMM_CASE(240) FD_GEMM_CASE(256)
+#undef FD_GEMM_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* fd_error_string(int code) {

@@ -26,12 +26,15 @@ from faithdiff_tpu_torch.ops.groupnorm import (GroupNormLaunch, group_norm,
                                                group_norm_reference,
                                                group_stats_reference,
                                                plan_group_norm)
-from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_gemv_tiled,
+from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_gemm_tiled,
+                                                nf4_gemv_tiled,
                                                 nf4_matmul_kernel,
                                                 nf4_matmul_reference,
+                                                plan_nf4_gemm,
                                                 plan_nf4_gemv)
 from faithdiff_tpu_torch.utils.quantize import (NF4_PACK_PAIRWISE, NF4Weight,
-                                                nf4_matmul, quantize_nf4)
+                                                dequantize_nf4, nf4_matmul,
+                                                quantize_nf4)
 
 pytestmark = pytest.mark.cuda
 
@@ -451,6 +454,83 @@ def test_nf4_decode_kernel_keeps_its_register_cap(cuda):
     for name, use in usage.items():
         assert {"REG", "STACK", "LOCAL"} <= use.keys(), dump
         assert int(use["REG"]) <= 65536 // (4 * plan_nf4_gemv(1, 64, 16).threads), (name, use)
+        assert int(use["STACK"]) == 0 and int(use["LOCAL"]) == 0, (name, use)
+
+
+@pytest.mark.parametrize("m", [9, 16, 17, 640, 1244])
+@pytest.mark.parametrize("in_f,out_f", [(64, 40), (64, 288), (576, 40), (576, 288),
+                                        (13824, 136)])
+def test_nf4_prefill_route_matches_plain_and_its_tile_walk(cuda, m, in_f, out_f):
+    """The prefill route (M > 8) at ragged M, ragged out, in = 64 (half a K
+    step) and 576 (the low half starting mid-block, a half-full last step):
+    against the plain version, within one bf16 step of the plain walk of
+    its plan, the same bits on two calls, one launch a call on its route."""
+    q, g = _nf4(cuda, in_f, out_f, seed=m)
+    x = torch.randn((m, in_f), generator=g, device=cuda).bfloat16()
+    _build.launches.clear()
+    out = nf4_matmul_kernel(x, q)
+    again = nf4_matmul_kernel(x, q)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"nf4_matmul": 2, "nf4_gemm": 2}
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out).all())
+    ref = nf4_matmul_reference(x, q)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 1e-2 * (1 + ref.float().abs())).all())
+    walk = nf4_gemm_tiled(x, q, plan_nf4_gemm(m, in_f, out_f)).float()
+    # both sum the same bf16 products in fp32, the kernel in the wgmma's
+    # order: apart by at most in_f * 2^-23 of the sum of |products| before
+    # the one bf16 rounding of each (which matters where the sum cancels)
+    mag = x.float().abs() @ dequantize_nf4(q, torch.bfloat16).float().abs()
+    big = torch.maximum(out.float().abs(), walk.abs()).clamp_min(2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool(((out.float() - walk).abs() <= step + in_f * 2.0 ** -23 * mag).all())
+
+
+def test_nf4_prefill_entry_point_holds_the_plan(cuda):
+    """The kernel lays shared memory out by its own copy of the plan's
+    formulas: it takes the plan's numbers and refuses 16 bytes less, more
+    than a block may have, another grid, another `full`, an x tile it has
+    no instance for, or a ring of one stage."""
+    lib = _build.load("nf4_matmul")
+    fn = lib.fd_nf4_gemm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for m, in_f, out_f in ((1244, 576, 40), (16, 512, 256), (640, 5120, 128)):
+        p = plan_nf4_gemm(m, in_f, out_f)
+        q, g = _nf4(cuda, in_f, out_f)
+        x = torch.randn((m, in_f), generator=g, device=cuda).bfloat16()
+        y = torch.empty((m, out_f), dtype=torch.bfloat16, device=cuda)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch(n_tile=p.n_tile, stages=p.stages, grid=p.grid, smem=p.smem_bytes,
+                   full=p.full):
+            return fn(x.data_ptr(), q.packed.data_ptr(), q.absmax.data_ptr(), y.data_ptr(),
+                      m, in_f, out_f, n_tile, stages, grid, smem, int(full), stream)
+
+        assert launch() == 0, p
+        torch.cuda.synchronize()
+        assert torch.equal(y, nf4_matmul_kernel(x, q))
+        for bad in (dict(smem=p.smem_bytes - 16), dict(smem=227 * 1024),
+                    dict(grid=p.grid + 1), dict(grid=p.grid - 1), dict(full=not p.full),
+                    dict(n_tile=24), dict(stages=1)):
+            assert launch(**bad) != 0, (p, bad)
+
+
+def test_nf4_prefill_kernel_fits_its_registers(cuda):
+    """One block of 384 threads an SM: at launch 65,536 / 384 -> 168
+    registers a thread; every instance of the prefill kernel fits them with
+    no local memory (spills), one for each x tile of the plan."""
+    lib = _build.build_all()["nf4_matmul"]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    usage = {name: dict(re.findall(r"(\w+):(\d+)", fields)) for name, fields in
+             re.findall(r"Function (\S*nf4_gemm_kernel\S*):\s*([^\n]*)", dump)}
+    assert len(usage) == 16, dump                # n_tile in 16, 32, ..., 256
+    for name, use in usage.items():
+        assert {"REG", "STACK", "LOCAL"} <= use.keys(), dump
+        assert int(use["REG"]) <= 168, (name, use)
         assert int(use["STACK"]) == 0 and int(use["LOCAL"]) == 0, (name, use)
 
 
