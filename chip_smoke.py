@@ -37,12 +37,30 @@
    (`transformer2d._BSND_ATTN`, as FAITHDIFF_BSND_ATTN=1 sets it), checks
    it and its launches, profiles its last UNet call, and holds that call
    on the packed path against the default path.
-5b'. `restore_large`: the same pipeline on a 2048x3072 uint8 image (a
+5b'. `cli_restore`: the restore pipeline's weights written in the
+   reference's file layout (the SDXL UNet's safetensors file in bf16,
+   FaithDiff.bin, the VAE's safetensors file) under
+   `faithdiff_tpu_torch/_build/`, converted by the port's `convert_cli`,
+   then `faithdiff_tpu_torch.cli.main(["restore", ...])` with the default
+   flags on a seeded 512x768 PNG: the weights it loads (strictly) must be
+   the pipeline's, its 1024x1536 PNG identical in every byte to the
+   in-memory pipeline's uint8 output on `resize_lanczos` of the same image,
+   its launches as planned. `cli_restore_tiled`: the same CLI with
+   `--upscale 2 --use_tile_vae --hdr 0.5 --color_fix adain` on a seeded
+   1000x1000 PNG: a (2000, 2000, 3) output, finite latents, 9 latent tiles
+   (UNet batch 18), the encode, denoise-encoder and decode tiles of the
+   tiling formula, launches as planned. Both print write / convert / load
+   seconds and the CLI's read, HDR, resize, pipeline and write seconds;
+   the weight files are deleted afterwards, also when a phase fails.
+5b''. `restore_large`: the same pipeline on a 2048x3072 uint8 image (a
    1024x1536 photo at the CLI's default --upscale 2): 15 latent tiles, UNet
    batch 30, 20 steps, the default attention path; checks the output
    shape, finite latents, 20 UNet calls and the planned GroupNorm launches,
    and prints wall, denoise and decode seconds, the UNet call medians,
    peak memory and the launches. Then frees the pipeline.
+5b'''. `vae_chunk_trap`: one `chunked_attention` call as the untiled VAE
+   decode of a 2000x2000 image runs it ([1, 1, 62500, 512] bf16, chunk 4,
+   15,625 loop steps) against the same call at kv 65,536 (chunk 1024).
 5c. Runs the attention-variant benchmark's entry point
    (`faithdiff_tpu_torch.scripts.bench_attention_variants.main`) and
    checks its launches.
@@ -68,7 +86,7 @@
    the UNet.
 9. Prints the card line, a JSON line listing every ported kernel, then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
-   passed.
+   passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
 
 Imports nothing of JAX. Exits nonzero on any failure.
 """
@@ -79,6 +97,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -115,6 +134,10 @@ GN_SHAPES = [((4, 320, 128, 128), 1e-5, "silu", True),
 ATTN_REPORT, GN_REPORT, PACKED_REPORT = 0, 1, 0
 
 TILE_PIXELS = (1024, 1536)
+# the CLI phases' photos: 512x768 at the default --upscale 2 is the
+# restore's 1024x1536; 1000x1000 at --upscale 2 --use_tile_vae gives 9
+# latent tiles and VAE tiles of 1024 px with a ragged edge
+CLI_PIXELS, TILED_PIXELS, TILED_LATENT_TILES = (512, 768), (1000, 1000), 9
 # a 1024x1536 photo at the CLI's default --upscale 2: 15 latent tiles of
 # 128^2, UNet batch 30 (B*C up to 76,800 rows in its ResNet norms)
 LARGE_PIXELS, LARGE_TILES = (2048, 3072), 15
@@ -137,6 +160,14 @@ PREFILL_LAYERS, PREFILL_TOKENS = 2, 1024
 # one bf16 step of the largest output leaves room only for a library call
 # that sums the cross-attention's products in another order
 PARITY_TOL = 2 ** -8                     # x max|default path's output|
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Prints the block's wall seconds as `phase <name>: <s> s`."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -601,6 +632,84 @@ def attention_path(packed: bool):
         transformer2d._BSND_ATTN = before
 
 
+def unet_counts(pipe):
+    """(GroupNorms, self-attentions) of the full-width UNet, checked: every
+    self-attention (attn1) runs at >= 1024 tokens at a 128^2 latent tile
+    and so goes to a flash kernel."""
+    from faithdiff_tpu_torch.models.layers import GroupNorm
+    from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
+
+    gn_unet = count_modules(pipe.unet, GroupNorm)
+    attn_unet = count_modules(pipe.unet, BasicTransformerBlock)
+    if (gn_unet, attn_unet) != (47, 70):
+        fail(f"UNet has {gn_unet} GroupNorms and {attn_unet} self-attentions, "
+             "expected 47 and 70")
+    return gn_unet, attn_unet
+
+
+class PathWatch:
+    """Forward hooks on a pipeline's models for one run of its path: CUDA
+    events around each UNet call, the last call's (args, kwargs), and the
+    (model, shape, itemsize, groups, aligned) of every GroupNorm call, from
+    which the launch plan predicts the GroupNorm kernels' launches."""
+
+    def __init__(self, torch, pipe):
+        from faithdiff_tpu_torch.models.layers import GroupNorm
+
+        self.events, self.last_call, self.gn_seen = [], [], []
+
+        def record(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+
+        def pre_hook(module, args, kwargs):
+            self.last_call[:] = [args, kwargs]
+            record()
+
+        def gn_hook(model):
+            def hook(module, args):
+                x = args[0]
+                self.gn_seen.append((model, tuple(x.shape), x.element_size(),
+                                     module.num_groups, x.data_ptr() % 16 == 0))
+            return hook
+
+        self.hooks = [pipe.unet.register_forward_pre_hook(pre_hook, with_kwargs=True),
+                      pipe.unet.register_forward_hook(record)]
+        self.hooks += [m.register_forward_pre_hook(gn_hook(name))
+                       for name in ("unet", "vae", "denoise_encoder")
+                       for m in getattr(pipe, name).modules()
+                       if isinstance(m, GroupNorm)]
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+    def unet_ms(self):
+        return [a.elapsed_time(b) for a, b in zip(self.events[::2], self.events[1::2])]
+
+    def expected_launches(self, label, flash, gn_unet, attn_unet):
+        """{kernel counter: launches} the run should show: `flash` once per
+        self-attention of each UNet call, each GroupNorm's kernels as
+        `plan_group_norm` plans them; fails unless every UNet GroupNorm was
+        one single-pass launch."""
+        from faithdiff_tpu_torch.ops.groupnorm import plan_group_norm
+
+        calls = len(self.events) // 2
+        expected = {flash: calls * attn_unet}
+        unet_routes = []
+        for model, shape, itemsize, groups, aligned in self.gn_seen:
+            plan = plan_group_norm(shape, itemsize, groups, aligned)
+            for name in plan.counters:
+                expected[name] = expected.get(name, 0) + 1
+            if model == "unet":
+                unet_routes.append(plan.route)
+        if unet_routes != ["fused"] * (calls * gn_unet):
+            fail(f"{label}: not every UNet GroupNorm is one single-pass launch: "
+                 f"{len(unet_routes)} calls, {unet_routes.count('fused')} fused")
+        return expected
+
+
 def build_restore(torch):
     """build_pipeline() at full width."""
     from faithdiff_tpu_torch.pipelines import build_pipeline
@@ -626,51 +735,11 @@ def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
     counts and the last UNet call's (args, kwargs)."""
     import numpy as np
 
-    from faithdiff_tpu_torch.models.layers import GroupNorm
-    from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
     from faithdiff_tpu_torch.ops import _build
-    from faithdiff_tpu_torch.ops.groupnorm import plan_group_norm
 
     label = label or ("restore_packed" if packed else "restore")
-    # every self-attention (attn1) of the UNet runs at >= 1024 tokens at a
-    # 128^2 latent tile and so goes to a flash kernel: the BHSD one by
-    # default, the packed one on the packed path
-    gn_unet = count_modules(pipe.unet, GroupNorm)
-    attn_unet = count_modules(pipe.unet, BasicTransformerBlock)
-    if (gn_unet, attn_unet) != (47, 70):
-        fail(f"UNet has {gn_unet} GroupNorms and {attn_unet} self-attentions, "
-             "expected 47 and 70")
-
-    unet_ms = []
-    events = []
-    last_call = []
-    # (model, shape, itemsize, groups, aligned) of each GroupNorm call
-    gn_seen = []
-
-    def pre_hook(module, args, kwargs):
-        last_call[:] = [args, kwargs]
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-
-    def post_hook(module, args, out):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-
-    def gn_hook(model):
-        def hook(module, args):
-            x = args[0]
-            gn_seen.append((model, tuple(x.shape), x.element_size(),
-                            module.num_groups, x.data_ptr() % 16 == 0))
-        return hook
-
-    hooks = [pipe.unet.register_forward_pre_hook(pre_hook, with_kwargs=True),
-             pipe.unet.register_forward_hook(post_hook)]
-    hooks += [m.register_forward_pre_hook(gn_hook(name))
-              for name in ("unet", "vae", "denoise_encoder")
-              for m in getattr(pipe, name).modules() if isinstance(m, GroupNorm)]
-
+    gn_unet, attn_unet = unet_counts(pipe)
+    watch = PathWatch(torch, pipe)
     img = np.random.default_rng(0).integers(
         0, 256, tuple(pixels) + (3,), dtype=np.uint8)
     prompt = torch.zeros((1, 77, 2048))
@@ -688,10 +757,8 @@ def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts = dict(_build.launches)
-    for h in hooks:
-        h.remove()
-    for a, b in zip(events[::2], events[1::2]):
-        unet_ms.append(a.elapsed_time(b))
+    watch.remove()
+    unet_ms = watch.unet_ms()
 
     lh, lw = pixels[0] // 8, pixels[1] // 8
     if tuple(latents.shape) != (1, lh, lw, 4):
@@ -703,19 +770,9 @@ def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
         fail(f"{label}: output {type(out)} {getattr(out, 'shape', None)}")
     if len(unet_ms) != STEPS:
         fail(f"{label}: {len(unet_ms)} UNet calls, expected {STEPS}")
-    unet_batch = last_call[0][0].shape[0]
+    unet_batch = watch.last_call[0][0].shape[0]
     flash = "flash_attention_bsnd_fwd" if packed else "flash_attention_fwd"
-    expected = {flash: STEPS * attn_unet}
-    unet_routes = []
-    for model, shape, itemsize, groups, aligned in gn_seen:
-        plan = plan_group_norm(shape, itemsize, groups, aligned)
-        for name in plan.counters:
-            expected[name] = expected.get(name, 0) + 1
-        if model == "unet":
-            unet_routes.append(plan.route)
-    if unet_routes != ["fused"] * (STEPS * gn_unet):
-        fail(f"{label}: not every UNet GroupNorm is one single-pass launch: "
-             f"{len(unet_routes)} calls, {unet_routes.count('fused')} fused")
+    expected = watch.expected_launches(label, flash, gn_unet, attn_unet)
     if counts != expected:
         fail(f"{label}: launch counts {counts}, expected {expected}")
     med = sorted(unet_ms)[STEPS // 2]
@@ -728,7 +785,7 @@ def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
         pixels=list(pixels), launches=counts, launches_as_planned=True,
         out_mean=float(out.mean()))
     print(label, json.dumps(result), flush=True)
-    return counts, last_call
+    return counts, watch.last_call
 
 
 def check_path_parity(torch, unet, args, kwargs):
@@ -748,6 +805,279 @@ def check_path_parity(torch, unet, args, kwargs):
     print("path_parity", json.dumps(result), flush=True)
     if not result["ok"]:
         fail(f"packed and default UNet calls disagree: {result}")
+
+
+def write_reference_weights(torch, pipe, root: str) -> dict:
+    """The pipeline's weights in the reference's file layout under `root`:
+    `sdxl/unet/diffusion_pytorch_model.safetensors` (core UNet keys, bf16),
+    `FaithDiff.bin` (fusion modules and `denoise_encoder.*`) and
+    `vae/diffusion_pytorch_model.safetensors`. Returns {file: bytes}."""
+    from faithdiff_tpu_torch.utils.convert import (export_faithdiff_bin,
+                                                   split_faithdiff_bin)
+    from faithdiff_tpu_torch.utils.safetensors import save_file
+
+    core, extras = split_faithdiff_bin(export_faithdiff_bin(
+        pipe.unet.state_dict(), pipe.denoise_encoder.state_dict()))
+    files = {"sdxl/unet/diffusion_pytorch_model.safetensors": core,
+             "vae/diffusion_pytorch_model.safetensors": pipe.vae.state_dict()}
+    for rel, sd in files.items():
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        save_file(sd, os.path.join(root, rel))
+    torch.save({f"{ns}.{k}": v.cpu() for ns, sd in extras.items()
+                for k, v in sd.items()}, os.path.join(root, "FaithDiff.bin"))
+    return {rel: os.path.getsize(os.path.join(root, rel))
+            for rel in list(files) + ["FaithDiff.bin"]}
+
+
+def run_cli(argv):
+    """`faithdiff_tpu_torch.cli.main(argv)` with its output echoed; returns
+    {name: seconds} of the `restored` line's read / hdr / resize /
+    pipeline / write split and the call's wall seconds."""
+    import io
+
+    from faithdiff_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    if rc != 0:
+        fail(f"cli {argv[0]} returned {rc}")
+    split = dict((k, float(v)) for k, v in
+                 re.findall(r"(\w+_s)=([0-9.]+)", out.getvalue()))
+    if set(split) != {"read_s", "hdr_s", "resize_s", "pipeline_s", "write_s"}:
+        fail(f"cli printed no restore line: {out.getvalue()!r}")
+    return dict(split, cli_wall_s=wall)
+
+
+@contextlib.contextmanager
+def cli_pipeline_watch(torch, hooks=()):
+    """Within the block, the pipeline the CLI builds is recorded with its
+    load seconds and a `PathWatch` on it (`seen["watch"]`), and every VAE
+    decode call's latents' finiteness and seconds. `hooks` are (module
+    name, forward hook) pairs to register on the pipeline's models."""
+    from faithdiff_tpu_torch import cli
+
+    seen = {"decode_s": 0.0, "latents_finite": True, "handles": []}
+    build = cli.load_checkpointed_pipeline
+
+    def watched(args):
+        t0 = time.perf_counter()
+        pipe = build(args)
+        torch.cuda.synchronize()
+        seen.update(pipe=pipe, load_s=time.perf_counter() - t0,
+                    watch=PathWatch(torch, pipe))
+        for path, hook in hooks:
+            module = pipe
+            for name in path.split("."):
+                module = getattr(module, name)
+            seen["handles"].append(module.register_forward_hook(hook))
+        decode = pipe.vae_decode
+
+        def timed_decode(latents):
+            seen["latents_finite"] &= bool(torch.isfinite(latents).all())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = decode(latents)
+            torch.cuda.synchronize()
+            seen["decode_s"] += time.perf_counter() - t
+            return out
+
+        pipe.vae_decode = timed_decode
+        return pipe
+
+    cli.load_checkpointed_pipeline = watched
+    try:
+        yield seen
+    finally:
+        cli.load_checkpointed_pipeline = build
+        if "watch" in seen:
+            seen["watch"].remove()
+        for h in seen["handles"]:
+            h.remove()
+
+
+def run_cli_restore(torch, pipe, root: str) -> str:
+    """`cli_restore`: the pipeline's weights written in the reference's
+    layout, converted by the port's `convert_cli`, then `cli.main(["restore",
+    ...])` with default flags on a seeded 512x768 PNG (upscale 2: 1024x1536,
+    2 latent tiles). The PNG it writes must equal, byte for byte, the
+    in-memory pipeline's uint8 output on `resize_lanczos` of the same image.
+    Returns the converted checkpoint dir."""
+    import numpy as np
+
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils import convert_cli
+    from faithdiff_tpu_torch.utils.image import check_image_size
+    from faithdiff_tpu_torch.utils.png import read_png, write_png
+    from faithdiff_tpu_torch.utils.resample import resize_lanczos
+    from faithdiff_tpu_torch.utils.safetensors import load_file
+
+    free_gb = shutil.disk_usage(os.path.dirname(root)).free / 1e9
+    print(f"cli_restore: {free_gb:.1f} GB free beside {root}; the reference "
+          "files take ~5.5 GB and the converted copy as much again", flush=True)
+    t0 = time.perf_counter()
+    sizes = write_reference_weights(torch, pipe, root)
+    t1 = time.perf_counter()
+    ckpt = os.path.join(root, "ckpt")
+    convert_cli.main(["--sdxl_dir", os.path.join(root, "sdxl"),
+                      "--faithdiff_bin", os.path.join(root, "FaithDiff.bin"),
+                      "--vae_dir", os.path.join(root, "vae"), "--out_dir", ckpt])
+    t2 = time.perf_counter()
+    keys = {name: len(load_file(os.path.join(ckpt, name, convert_cli.MODEL_FILE)))
+            for name in ("unet", "vae", "denoise_encoder")}
+
+    img = np.random.default_rng(11).integers(0, 256, CLI_PIXELS + (3,),
+                                             dtype=np.uint8)
+    os.makedirs(os.path.join(root, "in"))
+    write_png(os.path.join(root, "in", "photo.png"), img)
+    gn_unet, attn_unet = unet_counts(pipe)
+    with cli_pipeline_watch(torch) as seen:
+        _build.launches.clear()
+        split = run_cli(["restore", "--img_dir", os.path.join(root, "in"),
+                         "--save_dir", os.path.join(root, "out"),
+                         "--checkpoint_dir", ckpt])
+        counts = dict(_build.launches)
+    cli_pipe = seen.pop("pipe")
+    expected = seen["watch"].expected_launches("cli_restore", "flash_attention_fwd",
+                                               gn_unet, attn_unet)
+    if counts != expected:
+        fail(f"cli_restore: launch counts {counts}, expected {expected}")
+    # the weights the CLI loaded strictly are the in-memory pipeline's
+    for name in ("unet", "vae", "denoise_encoder"):
+        mine = getattr(pipe, name).state_dict()
+        theirs = getattr(cli_pipe, name).state_dict()
+        if sorted(mine) != sorted(theirs) or len(mine) != keys[name] or not all(
+                torch.equal(mine[k], theirs[k]) for k in mine):
+            fail(f"cli_restore: {name} weights differ after the round trip")
+    del cli_pipe
+    torch.cuda.empty_cache()
+
+    got = read_png(os.path.join(root, "out", "photo.png"))
+    h, w = CLI_PIXELS
+    padded, w0, h0, _, _ = check_image_size(resize_lanczos(img, (2 * w, 2 * h)))
+    want = pipe(padded, torch.zeros((1, 77, 2048)), torch.zeros((1, 1280)),
+                seed=42, output_type="uint8")[:h0, :w0]
+    if got.shape != want.shape:
+        fail(f"cli_restore: output {got.shape}, in-memory {want.shape}")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    if diff.any():
+        fail(f"cli_restore: {int((diff.max(axis=2) > 0).sum())} pixels differ "
+             f"from the in-memory pipeline, by up to {int(diff.max())}")
+    result = dict(
+        free_disk_gb=free_gb, file_bytes=sizes, keys_loaded_strict=keys,
+        write_weights_s=t1 - t0, convert_s=t2 - t1, load_s=seen["load_s"],
+        host_pre_s=split["read_s"] + split["resize_s"], **split,
+        identical_to_in_memory=True, pixels=list(got.shape[:2]),
+        launches=counts, launches_as_planned=True)
+    print("cli_restore", json.dumps(result), flush=True)
+    return ckpt
+
+
+def run_cli_restore_tiled(torch, root: str, ckpt: str) -> None:
+    """`cli_restore_tiled`: the CLI with `--upscale 2 --use_tile_vae --hdr
+    0.5 --color_fix adain` on a seeded 1000x1000 PNG: a 2000x2000 restore,
+    9 latent tiles (UNet batch 18), the VAE encode, the denoise encoder
+    and the VAE decode over the tile grids of the JAX tiling formula, the
+    color fix streamed; launches as planned."""
+    import numpy as np
+
+    from faithdiff_tpu_torch.config import DenoiseEncoderConfig, VAEConfig
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils.png import read_png, write_png
+
+    img = np.random.default_rng(12).integers(0, 256, TILED_PIXELS + (3,),
+                                             dtype=np.uint8)
+    os.makedirs(os.path.join(root, "in_tiled"))
+    write_png(os.path.join(root, "in_tiled", "photo.png"), img)
+    side = 2 * TILED_PIXELS[0]
+
+    def grid(extent, tile, overlap):        # `tiled_apply`'s tiles on a square
+        return len(range(0, extent, int(tile * (1 - overlap)))) ** 2
+
+    vae_cfg, de_cfg = VAEConfig(), DenoiseEncoderConfig()
+    want_tiles = dict(
+        encode=grid(side, vae_cfg.tile_sample_min_size, vae_cfg.tile_overlap_factor),
+        denoise_encoder=grid(side, de_cfg.tile_sample_min_size,
+                             de_cfg.tile_overlap_factor),
+        decode=grid(side // 8, vae_cfg.tile_latent_min_size,
+                    vae_cfg.tile_overlap_factor))
+    tiles = dict.fromkeys(want_tiles, 0)
+
+    def counter(name):
+        def hook(module, args, out):
+            tiles[name] += args[0].shape[0]
+        return hook
+
+    hooks = [("vae.encoder", counter("encode")), ("vae.decoder", counter("decode")),
+             ("denoise_encoder", counter("denoise_encoder"))]
+    with cli_pipeline_watch(torch, hooks) as seen:
+        _build.launches.clear()
+        torch.cuda.reset_peak_memory_stats()
+        split = run_cli(["restore", "--img_dir", os.path.join(root, "in_tiled"),
+                         "--save_dir", os.path.join(root, "out_tiled"),
+                         "--checkpoint_dir", ckpt, "--upscale", "2",
+                         "--use_tile_vae", "--hdr", "0.5", "--color_fix", "adain"])
+        counts = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pipe = seen.pop("pipe")
+    gn_unet, attn_unet = unet_counts(pipe)
+    unet_batch = seen["watch"].last_call[0][0].shape[0]
+    unet_ms = seen["watch"].unet_ms()
+    expected = seen["watch"].expected_launches(
+        "cli_restore_tiled", "flash_attention_fwd", gn_unet, attn_unet)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = read_png(os.path.join(root, "out_tiled", "photo.png"))
+    if out.shape != (side, side, 3):
+        fail(f"cli_restore_tiled: output {out.shape}")
+    if not seen["latents_finite"]:
+        fail("cli_restore_tiled: latents are not finite")
+    if tiles != want_tiles:
+        fail(f"cli_restore_tiled: tiles {tiles}, the tiling formula gives "
+             f"{want_tiles}")
+    if unet_batch != 2 * TILED_LATENT_TILES or len(unet_ms) != STEPS:
+        fail(f"cli_restore_tiled: UNet batch {unet_batch} over {len(unet_ms)} "
+             f"calls, expected {2 * TILED_LATENT_TILES} over {STEPS}")
+    if counts != expected:
+        fail(f"cli_restore_tiled: launch counts {counts}, expected {expected}")
+    result = dict(
+        pixels=[side, side], tiles=tiles, unet_batch=unet_batch,
+        host_pre_s=split["read_s"] + split["resize_s"], **split,
+        vae_decode_s=seen["decode_s"], load_s=seen["load_s"],
+        unet_ms_median=sorted(unet_ms)[STEPS // 2], peak_mem_gib=peak,
+        out_mean=float(out.mean()), launches=counts, launches_as_planned=True)
+    print("cli_restore_tiled", json.dumps(result), flush=True)
+
+
+def check_vae_chunk_trap(torch) -> None:
+    """One `chunked_attention` call as the untiled VAE decode of a 2000^2
+    image runs it ([1, 1, 62500, 512] bf16: the chunk halves to 4, 15,625
+    loop steps) against the same call at kv 65,536 (chunk 1024, 64 steps).
+    Measured only: the port keeps the JAX package's arithmetic."""
+    from faithdiff_tpu_torch.ops.attention import chunked_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    row = {}
+    for n in (62500, 65536):
+        q, k, v = (torch.randn((1, 1, n, 512), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        chunk = 1024
+        while n % chunk:
+            chunk //= 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chunked_attention(q, k, v, 512 ** -0.5)
+        torch.cuda.synchronize()
+        row[str(n)] = dict(chunk=chunk, loop_steps=n // chunk,
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           finite=bool(torch.isfinite(out).all()))
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    print("vae_chunk_trap", json.dumps(row), flush=True)
 
 
 # lower-cased kernel-name fragments -> the layer they belong to, first
@@ -1174,45 +1504,65 @@ def main() -> int:
     for name in _build.SOURCES:
         print_ptxas(name, _build.build_log.get(name, ""))
 
-    attn = check_attention(torch)
-    packed = check_attention_packed(torch)
-    ragged = check_attention_ragged(torch)
-    variants = check_attention_variants(torch)
-    fused, stats, apply_ = check_group_norm(torch)
+    with phase("kernel_checks"):
+        attn = check_attention(torch)
+        packed = check_attention_packed(torch)
+        ragged = check_attention_ragged(torch)
+        variants = check_attention_variants(torch)
+        fused, stats, apply_ = check_group_norm(torch)
     bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_
            if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
 
-    pipe = build_restore(torch)
-    counts, (args, kwargs) = run_restore(torch, pipe, packed=False)
-    with attention_path(False):
-        profile_call(torch, "profile", pipe.unet, args, kwargs)
-    packed_counts, (args, kwargs) = run_restore(torch, pipe, packed=True)
-    with attention_path(True):
-        profile_call(torch, "profile_packed", pipe.unet, args, kwargs)
-    check_path_parity(torch, pipe.unet, args, kwargs)
+    with phase("restore"):
+        pipe = build_restore(torch)
+        counts, (args, kwargs) = run_restore(torch, pipe, packed=False)
+        with attention_path(False):
+            profile_call(torch, "profile", pipe.unet, args, kwargs)
+    with phase("restore_packed"):
+        packed_counts, (args, kwargs) = run_restore(torch, pipe, packed=True)
+        with attention_path(True):
+            profile_call(torch, "profile_packed", pipe.unet, args, kwargs)
+        check_path_parity(torch, pipe.unet, args, kwargs)
     del args, kwargs
     if not all(counts.get(k) for k in ("group_norm_fused", "group_norm_stats",
                                        "group_norm_apply")):
         fail(f"restore did not launch every GroupNorm kernel: {counts}")
-    _, (args, kwargs) = run_restore(torch, pipe, packed=False,
-                                    pixels=LARGE_PIXELS, label="restore_large")
+    # the reference-layout weight files and the converted copy live beside
+    # the built kernels, and go whether the CLI phases pass or fail
+    root = os.path.join(_build.BUILD_DIR, f"cli_weights_{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    try:
+        with phase("cli_restore"):
+            ckpt = run_cli_restore(torch, pipe, root)
+        with phase("cli_restore_tiled"):
+            run_cli_restore_tiled(torch, root, ckpt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with phase("restore_large"):
+        _, (args, kwargs) = run_restore(torch, pipe, packed=False,
+                                        pixels=LARGE_PIXELS, label="restore_large")
     if args[0].shape[0] != 2 * LARGE_TILES:
         fail(f"restore_large: UNet batch {args[0].shape[0]}, expected "
              f"{2 * LARGE_TILES} ({LARGE_TILES} tiles)")
     del pipe, args, kwargs
     gc.collect()
     torch.cuda.empty_cache()
-    bench_counts = run_bench(torch)
+    with phase("vae_chunk_trap"):
+        check_vae_chunk_trap(torch)
+    with phase("bench"):
+        bench_counts = run_bench(torch)
 
-    nf4 = check_nf4(torch)
+    with phase("nf4"):
+        nf4 = check_nf4(torch)
     bad = [r for r in nf4 if not r["ok"]]
     if bad:
         fail(f"{len(bad)} NF4 kernel checks out of tolerance: {bad}")
-    check_caption_small(torch)
-    check_llama_prefill(torch)
-    caption_counts = run_caption(torch)
+    with phase("caption"):
+        check_caption_small(torch)
+        check_llama_prefill(torch)
+        caption_counts = run_caption(torch)
 
     def entry(name, row, source, replaces, launches=counts):
         return dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -8,15 +8,15 @@ Module names follow the transformers `CLIPVisionModel` state dict
 layer. The tower takes NHWC pixels, as the JAX one does, selects hidden
 layer -2 (running 23 of 24 layers) and drops the CLS token.
 
-Image preprocessing needs no PIL: `resize_bicubic` is Pillow's BICUBIC
-resample for uint8 images, in numpy.
+Image preprocessing needs no PIL: `resize_bicubic` (`utils/resample.py`)
+is Pillow's BICUBIC resample for uint8 images, in numpy.
 """
 from __future__ import annotations
 
 import ast
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ import torch.nn as nn
 
 from ..models.layers import LayerNorm, quick_gelu
 from ..ops.attention import multi_head_attention
+from ..utils.resample import resize_bicubic
 
 # CLIP image normalisation (OPENAI_CLIP_MEAN/STD)
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -159,76 +160,6 @@ class VisionProjector(nn.Sequential):
                  dtype: torch.dtype = torch.float32):
         super().__init__(nn.Linear(in_dim, out_dim, dtype=dtype), nn.GELU(),
                          nn.Linear(out_dim, out_dim, dtype=dtype))
-
-
-# ---------------------------------------------------------------------------
-# Pillow's BICUBIC resample for uint8 images (libImaging/Resample.c): a
-# separable convolution, the horizontal pass first, each pass rounding to
-# uint8. Coefficients are normalised per output pixel and then held in
-# fixed point with 22 fractional bits.
-# ---------------------------------------------------------------------------
-
-_PRECISION_BITS = 22
-
-
-def _bicubic(x: np.ndarray) -> np.ndarray:
-    a = -0.5
-    x = np.abs(x)
-    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
-                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
-
-
-def _coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(first input index [out], fixed-point taps [out, ksize]) of one axis;
-    taps past an output pixel's window are 0."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale            # bicubic support, widened when downscaling
-    ksize = int(math.ceil(support)) * 2 + 1
-    first = np.zeros(out_size, np.int64)
-    taps = np.zeros((out_size, ksize), np.int64)
-    ss = 1.0 / filterscale
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = _bicubic((np.arange(xmax) + xmin - center + 0.5) * ss)
-        total = 0.0
-        for v in w:                         # Pillow's sequential sum
-            total += v
-        if total != 0.0:
-            w = w / total
-        scaled = w * (1 << _PRECISION_BITS)
-        taps[xx, :xmax] = np.trunc(np.where(w < 0, scaled - 0.5, scaled + 0.5))
-        first[xx] = xmin
-    return first, taps
-
-
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    in_size = img.shape[axis]
-    first, taps = _coeffs(in_size, out_size)
-    src = np.moveaxis(img, axis, 0)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
-    for j in range(taps.shape[1]):
-        idx = np.minimum(first + j, in_size - 1)
-        k = taps[:, j].reshape((-1,) + (1,) * (src.ndim - 1))
-        acc += src[idx].astype(np.int64) * k
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
-
-
-def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """uint8 HWC image -> (width, height) `size`, as PIL's
-    `Image.resize(size, Image.BICUBIC)` gives it. A pass whose axis keeps
-    its size is skipped, as in Pillow."""
-    if img.dtype != np.uint8:
-        raise TypeError(f"resize_bicubic: {img.dtype} image, takes uint8")
-    out_w, out_h = size
-    if img.shape[1] != out_w:
-        img = _resample_axis(img, out_w, axis=1)
-    if img.shape[0] != out_h:
-        img = _resample_axis(img, out_h, axis=0)
-    return np.ascontiguousarray(img)
 
 
 def preprocess_clip_image(img: np.ndarray, image_size: int = 336,

@@ -72,6 +72,10 @@ class VAEConfig:
     tile_sample_min_size: int = 1024
     tile_overlap_factor: float = 0.25
 
+    @property
+    def tile_latent_min_size(self) -> int:
+        return self.tile_sample_min_size // 8
+
 
 @dataclasses.dataclass(frozen=True)
 class DenoiseEncoderConfig:
@@ -118,6 +122,10 @@ class PipelineConfig:
     start_point: str = "lr"         # "lr" | "noise"
     add_sample: bool = True
     color_fix: str = "wavelet"      # "wavelet" | "adain" | "nofix"
+    # VAE encode / decode and the denoise encoder over overlapping tiles of
+    # the models' tile_sample_min_size, blended at the seams; the color
+    # fix then streams by windows (the CLI's --use_tile_vae)
+    use_tiled_vae: bool = False
 
 
 def tiny_unet_config() -> UNetConfig:

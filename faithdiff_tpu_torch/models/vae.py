@@ -2,7 +2,7 @@
 `faithdiff_tpu/models/vae.py`), NCHW, diffusers state-dict names."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -123,6 +123,96 @@ def sample_from_moments(moments: torch.Tensor,
     std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0).float())
     noise = posterior_noise(mean.shape, generator, moments.device)
     return (mean.float() + std * noise).to(moments.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Tiled application with linear seam blending (diffusers VAE tiling, the
+# JAX package's `tiled_apply`). NCHW.
+# ---------------------------------------------------------------------------
+
+def blend_v(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
+    """Blend the bottom `extent` rows of `a` into the top rows of `b`."""
+    extent = min(a.shape[2], b.shape[2], extent)
+    if extent <= 0:
+        return b
+    ramp = (torch.arange(extent, dtype=torch.float32, device=b.device)
+            / extent)[:, None]
+    top = a[:, :, -extent:].float() * (1 - ramp) + b[:, :, :extent].float() * ramp
+    return torch.cat([top.to(b.dtype), b[:, :, extent:]], dim=2)
+
+
+def blend_h(a: torch.Tensor, b: torch.Tensor, extent: int) -> torch.Tensor:
+    """Blend the right `extent` columns of `a` into the left columns of `b`."""
+    extent = min(a.shape[3], b.shape[3], extent)
+    if extent <= 0:
+        return b
+    ramp = torch.arange(extent, dtype=torch.float32, device=b.device) / extent
+    left = (a[:, :, :, -extent:].float() * (1 - ramp)
+            + b[:, :, :, :extent].float() * ramp)
+    return torch.cat([left.to(b.dtype), b[:, :, :, extent:]], dim=3)
+
+
+def tiled_apply(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+                tile_in: int, overlap_factor: float, scale: float,
+                batched_fn: Optional[Callable] = None,
+                batch: int = 0) -> torch.Tensor:
+    """Apply `fn` (an image -> feature map with resolution ratio `scale`)
+    over overlapping spatial tiles of `x` [B, C, H, W], blending seams
+    linearly: stride `tile_in * (1 - overlap)`, blend extent
+    `tile_out * overlap`, each tile cropped to `tile_out - extent` before
+    the rows and columns are concatenated. Encode is scale 1/8, decode 8.
+    Edge tiles are ragged (never padded).
+
+    `batched_fn` ([G, C, th, tw] -> [G, C', oh, ow]) with `batch` > 0 runs
+    same-shape tiles `batch` at a time instead (`_tiled_apply_batched`)."""
+    overlap_size = int(tile_in * (1 - overlap_factor))
+    tile_out = int(round(tile_in * scale))
+    blend_extent = int(tile_out * overlap_factor)
+    row_limit = tile_out - blend_extent
+
+    h, w = x.shape[2], x.shape[3]
+    if batched_fn is not None and batch > 0:
+        rows = _tiled_apply_batched(batched_fn, x, tile_in, overlap_size, batch)
+    else:
+        rows = [[fn(x[:, :, i:i + tile_in, j:j + tile_in])
+                 for j in range(0, w, overlap_size)]
+                for i in range(0, h, overlap_size)]
+    result_rows = []
+    for i, row in enumerate(rows):
+        result_row = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = blend_v(rows[i - 1][j], tile, blend_extent)
+            if j > 0:
+                tile = blend_h(row[j - 1], tile, blend_extent)
+            result_row.append(tile[:, :, :row_limit, :row_limit])
+        result_rows.append(torch.cat(result_row, dim=3))
+    return torch.cat(result_rows, dim=2)
+
+
+def _tiled_apply_batched(batched_fn, x: torch.Tensor, tile_in: int,
+                         overlap_size: int, batch: int):
+    """`tiled_apply`'s tile grid through `batched_fn` in same-shape groups of
+    `batch` tiles (a group padded by repeating its first tiles, whose
+    outputs are dropped), as [row][column] outputs."""
+    h, w = x.shape[2], x.shape[3]
+    grid = [(i // overlap_size, j // overlap_size,
+             x[:, :, i:i + tile_in, j:j + tile_in])
+            for i in range(0, h, overlap_size)
+            for j in range(0, w, overlap_size)]
+    n_rows, n_cols = grid[-1][0] + 1, grid[-1][1] + 1
+    groups: dict = {}
+    for k, (_, _, tile) in enumerate(grid):
+        groups.setdefault(tuple(tile.shape[2:]), []).append(k)
+    out: dict = {}
+    for idxs in groups.values():
+        padded = idxs + idxs[:(-len(idxs)) % batch]
+        for s in range(0, len(padded), batch):
+            sel = padded[s:s + batch]
+            res = batched_fn(torch.cat([grid[k][2] for k in sel], dim=0))
+            for n, k in enumerate(sel):
+                out.setdefault(k, res[n:n + 1])
+    return [[out[r * n_cols + c] for c in range(n_cols)] for r in range(n_rows)]
 
 
 class DenoiseEncoder(Encoder):

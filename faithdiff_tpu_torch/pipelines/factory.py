@@ -2,8 +2,16 @@
 `faithdiff_tpu/pipelines/factory.py`).
 
 Weights come from given state dicts (diffusers / FaithDiff.bin names, e.g.
-`utils.convert.state_dict_from_flax` of the JAX package's params) or from
-a seeded random init made on the target device.
+`utils.convert.state_dict_from_flax` of the JAX package's params, or a
+checkpoint read by `utils.safetensors.load_file`) or from a seeded random
+init made on the target device. A state dict's tensors may lie on the host
+in any float dtype: each loads into the fp32 model, which is then cast to
+`dtype` (fp16 -> fp32 -> bf16 rounds to nearest even, as the JAX
+package's cast does).
+
+Under `pipeline_config.use_tiled_vae` the denoise encoder, the VAE encode
+and the VAE decode run over blended tiles (`models.vae.tiled_apply`) once
+the input outgrows a tile, with the JAX factory's gates.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ from ..config import (DenoiseEncoderConfig, PipelineConfig, SchedulerConfig,
                       UNetConfig, VAEConfig, tiny_denoise_encoder_config,
                       tiny_unet_config, tiny_vae_config)
 from ..models.unet import UNet2DConditionModel
-from ..models.vae import AutoencoderKL, DenoiseEncoder
+from ..models.vae import AutoencoderKL, DenoiseEncoder, tiled_apply
 from ..schedulers import DDPMScheduler, EulerDiscreteScheduler
 from .faithdiff import FaithDiffPipeline
 
@@ -79,7 +87,43 @@ def build_pipeline(
         scheduler=EulerDiscreteScheduler(scheduler_config),
         ddpm_scheduler=DDPMScheduler(scheduler_config),
         config=pipeline_config,
-        vae_scaling_factor=vae_config.scaling_factor)
+        vae_scaling_factor=vae_config.scaling_factor,
+        **_tiled_stages(vae, denoise_encoder, pipeline_config.use_tiled_vae))
+
+
+def _tiled_stages(vae: AutoencoderKL, denoise_encoder: DenoiseEncoder,
+                  use_tiled_vae: bool) -> dict:
+    """The pipeline's stage callables: the models' forward passes, or under
+    `use_tiled_vae` the tiled ones, taken once the image (or the latents,
+    for the decode) is larger than a tile on its longer side."""
+    if not use_tiled_vae:
+        return {}
+    de_tile = denoise_encoder.config.tile_sample_min_size
+    de_overlap = denoise_encoder.config.tile_overlap_factor
+    tile_sample = vae.config.tile_sample_min_size
+    tile_latent = vae.config.tile_latent_min_size
+    overlap = vae.config.tile_overlap_factor
+
+    def denoise_encoder_apply(image):
+        if max(image.shape[2:]) > de_tile:
+            return tiled_apply(denoise_encoder, image, tile_in=de_tile,
+                               overlap_factor=de_overlap, scale=1 / 8)
+        return denoise_encoder(image)
+
+    def vae_encode_moments(image):
+        if max(image.shape[2:]) > tile_sample:
+            return tiled_apply(vae.encode_moments, image, tile_in=tile_sample,
+                               overlap_factor=overlap, scale=1 / 8)
+        return vae.encode_moments(image)
+
+    def vae_decode(latents):
+        if max(latents.shape[2:]) > tile_latent:
+            return tiled_apply(vae.decode, latents, tile_in=tile_latent,
+                               overlap_factor=overlap, scale=8.0)
+        return vae.decode(latents)
+
+    return dict(denoise_encoder_apply=denoise_encoder_apply,
+                vae_encode_moments=vae_encode_moments, vae_decode=vae_decode)
 
 
 def build_tiny_pipeline(**kwargs) -> FaithDiffPipeline:

@@ -4,14 +4,17 @@
 denoise encoder LQ features -> VAE encode + DDPM noise to t=999 (or pure
 noise) -> Euler loop over Gaussian-blended latent tiles, all tiles' CFG
 pairs in one UNet call ([neg_0, pos_0, neg_1, pos_1, ...], fusion group
-size 2) -> VAE decode -> color fix. Public layouts follow the JAX package:
+size 2) -> VAE decode -> color fix. Under `config.use_tiled_vae` the
+factory's stages run the denoise encoder and the VAE over blended tiles,
+and the color fix streams by windows into a host canvas. Public layouts
+follow the JAX package:
 a [H, W, 3] uint8 or float input, NHWC latents in and out; the models run
 NCHW inside. `seed` drives torch.Generators.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -20,7 +23,8 @@ from ..config import PipelineConfig
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL, DenoiseEncoder, sample_from_moments
 from ..schedulers import DDPMScheduler, EulerDiscreteScheduler
-from ..utils.color_fix import adain_color_fix, wavelet_color_fix
+from ..utils.color_fix import (adain_color_fix, streaming_color_fix,
+                               wavelet_color_fix)
 from ..utils.image import denormalize_from_diffusion, normalize_to_diffusion
 from .tiling import (compute_tile_layout, gaussian_tile_weights, merge_tiles,
                      split_tiles, tile_position_ids)
@@ -44,7 +48,9 @@ def _tensor(x, device) -> torch.Tensor:
 @dataclasses.dataclass
 class FaithDiffPipeline:
     """Denoise encoder -> tiled UNet denoising -> VAE decode. The models'
-    parameters decide the device and the compute dtype."""
+    parameters decide the device and the compute dtype. The three stage
+    callables (NCHW in and out) default to the models' own forward passes;
+    `pipelines.factory.build_pipeline` gives the tiled ones."""
 
     unet: UNet2DConditionModel
     vae: AutoencoderKL
@@ -55,6 +61,18 @@ class FaithDiffPipeline:
         default_factory=DDPMScheduler)
     config: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
     vae_scaling_factor: float = 0.13025
+    # image [1, 3, H, W] -> LQ features / VAE moments; latents -> image
+    denoise_encoder_apply: Optional[Callable] = None
+    vae_encode_moments: Optional[Callable] = None
+    vae_decode: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.denoise_encoder_apply is None:
+            self.denoise_encoder_apply = self.denoise_encoder
+        if self.vae_encode_moments is None:
+            self.vae_encode_moments = self.vae.encode_moments
+        if self.vae_decode is None:
+            self.vae_decode = self.vae.decode
 
     @property
     def device(self) -> torch.device:
@@ -117,7 +135,7 @@ class FaithDiffPipeline:
         image = self._prep_input(src)
 
         # LQ features of the whole image, then cut into the tile grid
-        image_latents = self.denoise_encoder(image)
+        image_latents = self.denoise_encoder_apply(image)
         lq_tiles = split_tiles(image_latents, layout)
 
         # initial latents: NCHW noise from a CPU generator (bit-identical to
@@ -132,7 +150,7 @@ class FaithDiffPipeline:
             latents = _tensor(latents, dev).permute(0, 3, 1, 2).contiguous()
         latents = latents * state.init_noise_sigma
         if start_point == "lr":
-            moments = self.vae.encode_moments(image)
+            moments = self.vae_encode_moments(image)
             lr_latents = sample_from_moments(moments, gen).float() \
                 * self.vae_scaling_factor
             latents = self.ddpm_scheduler.add_noise(lr_latents, latents, [999])
@@ -196,7 +214,12 @@ class FaithDiffPipeline:
     def _decode(self, latents: torch.Tensor, src: torch.Tensor,
                 color_fix: Optional[str], to_uint8: bool) -> np.ndarray:
         color_fix = self.config.color_fix if color_fix is None else color_fix
-        image_out = self.vae.decode(latents / self.vae_scaling_factor)
+        image_out = self.vae_decode(latents / self.vae_scaling_factor)
+        if self.config.use_tiled_vae:
+            # the fix streams window by window into a host canvas: the
+            # one-shot fix holds ~10 full-resolution buffers on the device
+            return streaming_color_fix(image_out, src, mode=color_fix,
+                                       to_uint8=to_uint8, denorm=True)
         # the color transfer stays in the decode dtype (as in JAX, where
         # fp32 doubles ~10 full-resolution buffers)
         image_out = denormalize_from_diffusion(image_out)

@@ -6,7 +6,8 @@ card.
 For each setting of the planner's constants (`ops.groupnorm`: the most
 bytes a block holds, the largest cluster) and each shape, it prints one JSON line: the plan's cluster size and
 blocks, the device time of one call from CUDA-graph replays, that time
-over the byte bound, and the two-pass pair's time at the same shape.
+over the byte bound, and the two-pass pair's and the plain version's
+(`group_norm_reference`, from a loop of calls) times at the same shape.
 Shapes: the UNet's ResNet / Transformer2D GroupNorms at batch 4 and the
 15-tile restore's [30, 2560, 32, 32] and [30, 960, 128, 128], bf16 with
 add and SiLU. Raises without a CUDA card.
@@ -49,6 +50,21 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / replays / launches
 
 
+def loop_ms(fn, iters: int = 3) -> float:
+    """Mean device ms of one call of `fn` from CUDA events around a loop of
+    calls after one warm-up call (for calls long enough that the host's
+    launch rate does not show)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def main() -> list:
     if not torch.cuda.is_available():
         raise RuntimeError("bench_group_norm_plan needs a CUDA card")
@@ -64,6 +80,8 @@ def main() -> list:
             add = torch.randn((b, c), generator=gen, device="cuda").bfloat16()
             bound_ms = (2 * x.numel() * 2 + add.numel() * 2) / PEAK_BYTES * 1e3
             pair_ms = None
+            plain_ms = loop_ms(lambda: gn.group_norm_reference(
+                x, scale, bias, 32, 1e-5, "silu", add))
             for setting in SETTINGS:
                 gn.FUSED_SLICE_BYTES, gn.FUSED_MAX_CLUSTER = setting
                 launch = gn.GroupNormLaunch(x, scale, bias, 32, 1e-5, "silu", add)
@@ -79,7 +97,7 @@ def main() -> list:
                            cluster=p.cluster, blocks=p.fused_grid,
                            slice_kib=p.slice_len * 2 / 1024, ms=ms,
                            bound_ms=bound_ms, ms_over_bound=ms / bound_ms,
-                           two_pass_ms=pair_ms)
+                           two_pass_ms=pair_ms, plain_ms=plain_ms)
                 print("group_norm_plan", json.dumps(row), flush=True)
                 rows.append(row)
             del x, launch

@@ -19,11 +19,22 @@ inverse of `faithdiff_tpu/utils/convert.py`'s `convert_llama`,
 Quantised leaves (NF4 `packed` / `absmax`, int8 `values` / `scales`) carry
 unchanged: the JAX bytes, shapes and dtypes become the buffers of
 `NF4Dense` / `Int8Dense`.
+
+The reference's own torch files need no layout change: their conv kernels
+are OIHW and their dense weights [out, in], as the port's are, and the
+port's module names are the reference's. What the reference's files need
+is the FaithDiff.bin split (`split_faithdiff_bin`), the override of the
+base SDXL UNet by FaithDiff.bin's core keys and the merge of its fusion
+modules (`unet_state_dict_from_reference`); `export_faithdiff_bin` is the
+inverse. The JAX package's renames (`_UNET_RENAMES`, the flax module
+tree) and their inverse compose to the identity on these names, which the
+tests hold.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+import zipfile
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +116,82 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         elif transform == "linear":
             arr = arr.T
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the reference's torch files (diffusers UNet / VAE, FaithDiff.bin)
+# ---------------------------------------------------------------------------
+
+# FaithDiff.bin's namespaces beside the core UNet keys
+FAITHDIFF_NAMESPACES = ("denoise_encoder", "information_transformer_layes",
+                        "condition_embedding", "agg_net", "spatial_ch_projs")
+# the ones that belong to the fusion UNet (`agg_net` has no module in the
+# JAX package or the port, and is dropped as the JAX conversion drops it)
+UNET_EXTRAS = ("information_transformer_layes", "condition_embedding",
+               "spatial_ch_projs")
+
+
+def load_torch_bin(path: str) -> Dict[str, torch.Tensor]:
+    """A .bin / .pth state dict (`{"state_dict": ...}` unwrapped) as CPU
+    tensors. `weights_only=True`: the file may hold tensors and plain
+    containers only, which is all a state dict is, and nothing is
+    unpickled that could run code. A zip-format file is memory-mapped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True,
+                    mmap=zipfile.is_zipfile(path))
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def split_faithdiff_bin(
+    state_dict: Mapping[str, Any],
+) -> Tuple[Dict[str, Any], Dict[str, Dict[str, Any]]]:
+    """Split the flat FaithDiff.bin layout into (core UNet keys, {namespace:
+    keys without it}), as the reference's `load_state_dict` does."""
+    core: Dict[str, Any] = {}
+    extras: Dict[str, Dict[str, Any]] = {ns: {} for ns in FAITHDIFF_NAMESPACES}
+    for key, value in state_dict.items():
+        for ns in FAITHDIFF_NAMESPACES:
+            if key.startswith(ns + "."):
+                extras[ns][key[len(ns) + 1:]] = value
+                break
+        else:
+            core[key] = value
+    return core, extras
+
+
+def unet_state_dict_from_reference(unet_sd: Mapping[str, Any],
+                                   faithdiff_sd: Mapping[str, Any]
+                                   ) -> Dict[str, Any]:
+    """The port's fusion-UNet state dict from the base SDXL UNet's keys and
+    FaithDiff.bin: its core keys override the base (the reference loads
+    them non-strictly over it), and its fusion modules join under their
+    own names."""
+    core, extras = split_faithdiff_bin(faithdiff_sd)
+    merged = {**unet_sd, **core}
+    for ns in UNET_EXTRAS:
+        merged.update({f"{ns}.{k}": v for k, v in extras[ns].items()})
+    return merged
+
+
+def denoise_encoder_state_dict_from_reference(
+        faithdiff_sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """FaithDiff.bin's `denoise_encoder.*` keys, without the namespace: the
+    port's `DenoiseEncoder` state dict."""
+    return split_faithdiff_bin(faithdiff_sd)[1]["denoise_encoder"]
+
+
+def export_faithdiff_bin(unet_sd: Mapping[str, Any],
+                         denoise_encoder_sd: Optional[Mapping[str, Any]] = None
+                         ) -> Dict[str, Any]:
+    """The port's UNet and denoise-encoder state dicts in FaithDiff.bin's
+    layout: the core UNet and the fusion modules under their names, the
+    denoise encoder under `denoise_encoder.` (the inverse of the two
+    functions above)."""
+    out = dict(unet_sd)
+    out.update({f"denoise_encoder.{k}": v
+                for k, v in (denoise_encoder_sd or {}).items()})
     return out
 
 

@@ -1,0 +1,168 @@
+"""PNG read and write on the standard library's `zlib` and numpy.
+
+`read_png` decodes a non-interlaced PNG of color type 0 (gray, 1/2/4/8
+bits), 2 (RGB, 8), 3 (palette, 1/2/4/8), 4 (gray + alpha, 8) or 6 (RGBA,
+8) to the [H, W, 3] uint8 array that `np.asarray(Image.open(p).convert(
+"RGB"))` gives: alpha and transparency are dropped, gray is replicated,
+gray below 8 bits is scaled to 0..255. Interlaced and 16-bit files raise.
+`write_png` writes an [H, W, 3] uint8 array as an 8-bit RGB PNG.
+
+The five scanline filters are undone together along anti-diagonals: a
+byte depends only on its left, upper and upper-left neighbours, so every
+pixel with the same row + column is independent of the others, and a
+whole diagonal is one vectorised step (H + W steps an image).
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# color type -> (channels, allowed bit depths)
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
+                4: (2, (8,)), 6: (4, (8,))}
+
+
+def _chunks(data: bytes, path: str):
+    """(type, payload) of each chunk, CRCs checked."""
+    if data[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos = 8
+    while pos + 12 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n] or b"\0" * 4)
+        if len(payload) != n or zlib.crc32(kind + payload) != crc:
+            raise ValueError(f"{path}: chunk {kind!r} is truncated or corrupt")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+    raise ValueError(f"{path}: no IEND chunk")
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, height: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """Filtered scanlines (a filter-type byte each) -> [height, rowbytes]
+    uint8, by anti-diagonals of bpp-byte cells."""
+    rows = raw[:height * (rowbytes + 1)].reshape(height, rowbytes + 1)
+    ftype = rows[:, 0].astype(np.int64)
+    if (ftype > 4).any():
+        raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
+    ncols = rowbytes // bpp
+    filt = rows[:, 1:].reshape(height, ncols, bpp).astype(np.int32)
+    # out[r + 1, c + 1] is cell (r, c); row 0 and column 0 are the zeros
+    # PNG takes for bytes before the image
+    out = np.zeros((height + 1, ncols + 1, bpp), np.int32)
+    for d in range(height + ncols - 1):
+        r = np.arange(max(0, d - ncols + 1), min(height - 1, d) + 1)
+        c = d - r
+        x = filt[r, c]
+        a, b, ul = out[r + 1, c], out[r, c + 1], out[r, c]
+        f = ftype[r][:, None]
+        pred = np.where(f == 1, a, np.where(f == 2, b, np.where(
+            f == 3, (a + b) >> 1, np.where(f == 4, _paeth(a, b, ul), 0))))
+        out[r + 1, c + 1] = (x + pred) & 0xFF
+    return out[1:, 1:].reshape(height, rowbytes).astype(np.uint8)
+
+
+def _unpack(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """[H, rowbytes] packed samples (MSB first) -> [H, width] uint8 values."""
+    if depth == 8:
+        return rows
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(rows.shape[0], -1)[:, :width]
+
+
+def read_png(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 RGB of a PNG file, as PIL's `convert("RGB")` gives it.
+    Raises ValueError on a malformed file and NotImplementedError on an
+    interlaced or 16-bit one."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header = palette = None
+    idat = []
+    for kind, payload in _chunks(data, path):
+        if kind == b"IHDR":
+            if len(payload) != 13:
+                raise ValueError(f"{path}: IHDR of {len(payload)} bytes")
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            if len(payload) % 3 or not payload:
+                raise ValueError(f"{path}: PLTE of {len(payload)} bytes")
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    width, height, depth, ctype, compression, filter_method, interlace = header
+    if ctype not in _COLOR_TYPES:
+        raise ValueError(f"{path}: unknown PNG color type {ctype}")
+    channels, depths = _COLOR_TYPES[ctype]
+    if depth == 16:
+        raise NotImplementedError(f"{path}: 16-bit PNG is not supported")
+    if interlace:
+        raise NotImplementedError(f"{path}: interlaced PNG is not supported")
+    if (depth not in depths or compression or filter_method
+            or not width or not height):
+        raise ValueError(f"{path}: unsupported IHDR {header}")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette image without PLTE")
+    rowbytes = (width * channels * depth + 7) // 8
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{path}: image data does not inflate: {e}") from None
+    if raw.size < height * (rowbytes + 1):
+        raise ValueError(f"{path}: {raw.size} bytes of image data, "
+                         f"{height * (rowbytes + 1)} expected")
+    rows = _unfilter(raw, height, rowbytes, max(1, channels * depth // 8))
+    if ctype == 2:
+        return rows.reshape(height, width, 3)
+    if ctype == 6:
+        return np.ascontiguousarray(rows.reshape(height, width, 4)[..., :3])
+    if ctype == 4:
+        gray = rows.reshape(height, width, 2)[..., 0]
+    else:
+        values = _unpack(rows, width, depth)
+        if ctype == 3:
+            if values.max() >= len(palette):
+                raise ValueError(f"{path}: palette index past the "
+                                 f"{len(palette)} PLTE entries")
+            return palette[values]
+        gray = (values.astype(np.int32) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+    return np.repeat(gray[..., None], 3, axis=2)
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload)))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Write an [H, W, 3] uint8 array as an 8-bit RGB PNG, every scanline
+    under the Up filter (the byte above subtracted)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_png: takes [H, W, 3] uint8, got "
+                         f"{img.dtype} {img.shape}")
+    height, width = img.shape[:2]
+    flat = img.reshape(height, width * 3)
+    up = np.empty((height, width * 3 + 1), np.uint8)
+    up[:, 0] = 2
+    up[0, 1:] = flat[0]
+    np.subtract(flat[1:], flat[:-1], out=up[1:, 1:])
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
+                + _chunk(b"IDAT", zlib.compress(up.tobytes(), level))
+                + _chunk(b"IEND", b""))

@@ -1,7 +1,8 @@
 """The PyTorch port imports nothing of JAX, flax or the JAX package, and
-neither PIL nor transformers (the card's machine has neither): every
-module of `faithdiff_tpu_torch` and `chip_smoke.py`, read as source, and
-the package as imported in a fresh interpreter."""
+none of PIL, transformers, safetensors, orbax or OpenCV (the card's
+machine has none of them): every module of `faithdiff_tpu_torch` and
+`chip_smoke.py`, read as source, and the package as imported in a fresh
+interpreter."""
 import ast
 import os
 import pathlib
@@ -10,12 +11,12 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "faithdiff_tpu", "PIL",
-             "transformers")
+             "transformers", "safetensors", "orbax", "cv2")
 
 
 def _port_sources():
     files = sorted((ROOT / "faithdiff_tpu_torch").rglob("*.py"))
-    assert len(files) >= 28, files
+    assert len(files) >= 44, files
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -51,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
         "faithdiff_tpu_torch.utils.quantize, "
         "faithdiff_tpu_torch.models.transformer2d, "
         "faithdiff_tpu_torch.ops.attention_variants, "
-        "faithdiff_tpu_torch.scripts.bench_attention_variants\n"
+        "faithdiff_tpu_torch.scripts.bench_attention_variants, "
+        "faithdiff_tpu_torch.cli, faithdiff_tpu_torch.utils.convert_cli, "
+        "faithdiff_tpu_torch.utils.png, faithdiff_tpu_torch.utils.image\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
