@@ -48,16 +48,36 @@
    its launches as planned. `cli_restore_tiled`: the same CLI with
    `--upscale 2 --use_tile_vae --hdr 0.5 --color_fix adain` on a seeded
    1000x1000 PNG: a (2000, 2000, 3) output, finite latents, 9 latent tiles
-   (UNet batch 18), the encode, denoise-encoder and decode tiles of the
+   (18 UNet rows a step, in the CLI's chunks), the encode, denoise-encoder and decode tiles of the
    tiling formula, launches as planned. Both print write / convert / load
-   seconds and the CLI's read, HDR, resize, pipeline and write seconds;
-   the weight files are deleted afterwards, also when a phase fails.
+   seconds and the CLI's read, encode, HDR, resize, pipeline and write
+   seconds. `cli_restore_prompt`: seeded full-width text towers written
+   as SDXL ships them (fp16 `text_encoder*/model.safetensors`) and
+   tokenizer dirs of a synthetic 49408-symbol vocabulary (BOS / EOS at
+   49406 / 49407, `tokenizer_2` padding with `!`), converted, then the CLI
+   with `--tokenizer_dir`, a caption JSON and `--negative_prompt` on
+   `cli_restore`'s PNG: identical in every byte to the in-memory pipeline
+   given the port's own encodes of the same texts, and unlike the
+   zero-embed output. The in-memory pipelines of the CLI phases run the
+   CLI's `TILE_CHUNK`. The weight files are deleted afterwards, also when
+   a phase fails.
 5b''. `restore_large`: the same pipeline on a 2048x3072 uint8 image (a
    1024x1536 photo at the CLI's default --upscale 2): 15 latent tiles, UNet
    batch 30, 20 steps, the default attention path; checks the output
    shape, finite latents, 20 UNet calls and the planned GroupNorm launches,
    and prints wall, denoise and decode seconds, the UNet call medians,
-   peak memory and the launches. Then frees the pipeline.
+   peak memory and the launches. `chunk_parity`: its first UNet call
+   unchunked against chunks of the CLI's `TILE_CHUNK`, on both attention
+   paths, beside the same call with its tiles reversed.
+   `tile_chunk_sweep`: one full-width UNet call at chunks of 1-24 tiles
+   (UNet batch 2-48), the median of 3 by CUDA events, the peak memory,
+   the pick (lowest ms per tile leaving 40 GiB free) and profiles at the
+   pick and the next chunk up. `restore_4k`: a 4096x4096 restore (49
+   tiles) with `use_tiled_vae` and the CLI's chunk, keeping canvases, then
+   a resume after deleting the last two: 2 * ceil(49 / c) UNet calls and
+   the same bytes; its checks as `restore_large`'s. Then frees the
+   pipeline. `text_towers`: the full-width SDXL text towers, bf16 on the
+   card, against fp32 on the CPU over 4 prompts of the port's BPE.
 5b'''. `vae_chunk_trap`: one `chunked_attention` call as the untiled VAE
    decode of a 2000x2000 image runs it ([1, 1, 62500, 512] bf16, chunk 4,
    15,625 loop steps) against the same call at kv 65,536 (chunk 1024).
@@ -142,6 +162,27 @@ CLI_PIXELS, TILED_PIXELS, TILED_LATENT_TILES = (512, 768), (1000, 1000), 9
 # 128^2, UNet batch 30 (B*C up to 76,800 rows in its ResNet norms)
 LARGE_PIXELS, LARGE_TILES = (2048, 3072), 15
 STEPS = 20
+# tiles per UNet call the sweep times, and the memory a chunk must leave
+# free beside it: the 13B captioner's peak is 10.69 GiB (PERF.md)
+SWEEP_CHUNKS = (1, 2, 4, 8, 12, 16, 24)
+FREE_GIB_FOR_CAPTIONER = 40
+# a 2048^2 photo at the CLI's default --upscale 2: 49 latent tiles of 128^2
+FOUR_K_PIXELS, FOUR_K_TILES = (4096, 4096), 49
+# the towers add each layer's output to a bf16 residual stream that
+# reaches |x| ~ 27 in bigG's 31 layers with seeded weights (a bf16 step of
+# 0.125 there): on an H100 an element of the prompt embeds differed from
+# fp32 by 0.66, past 5e-2 * (1 + |ref|) at that element, with mean errors
+# of 1.1% (prompt embeds) and 1.3% (pooled) of the mean |ref|; a wrong
+# mask, activation or weight moves the mean error by tens of percent
+TOWER_MEAN_TOL = 2e-2
+TOWER_PROMPTS = [
+    "a photo of a red house with a wooden door",
+    "",
+    "the cat's toys, a ball and a mouse, lie on the blue rug by the window",
+    " ".join(["a tall green tree beside the old stone wall"] * 12),
+]
+PROMPT_CAPTION = ("The image shows a small red house with a white door. "
+                  "A cat sits on the steps in the sun. The sky is blue.")
 
 # the 13B LLaMA projections (in, out): q/k/v/o, gate/up, down; M = B at
 # decode (the decode route takes up to 8, the prefill route a batch of 16)
@@ -160,6 +201,13 @@ PREFILL_LAYERS, PREFILL_TOKENS = 2, 1024
 # one bf16 step of the largest output leaves room only for a library call
 # that sums the cross-attention's products in another order
 PARITY_TOL = 2 ** -8                     # x max|default path's output|
+# a chunk runs the UNet's GEMMs and convolutions at another batch, for
+# which cuBLAS and cuDNN pick other kernels, and cuBLAS's stream-K GEMMs
+# split K by an output tile's place: other orders of bf16 sums through
+# ~100 layers. On an H100 the 15-tile call against chunks of 8 differed by
+# 0.047 at max|ref| 3.22 (3 bf16 steps, 0.0146 max|ref|), and so did the
+# same call with its tiles in reverse order
+CHUNK_TOL = 2 ** -5                      # x max|unchunked output|
 
 
 @contextlib.contextmanager
@@ -649,14 +697,16 @@ def unet_counts(pipe):
 
 class PathWatch:
     """Forward hooks on a pipeline's models for one run of its path: CUDA
-    events around each UNet call, the last call's (args, kwargs), and the
-    (model, shape, itemsize, groups, aligned) of every GroupNorm call, from
-    which the launch plan predicts the GroupNorm kernels' launches."""
+    events around each UNet call, each call's batch, the first and the
+    last call's (args, kwargs), and the (model, shape, itemsize, groups,
+    aligned) of every GroupNorm call, from which the launch plan predicts
+    the GroupNorm kernels' launches."""
 
     def __init__(self, torch, pipe):
         from faithdiff_tpu_torch.models.layers import GroupNorm
 
         self.events, self.last_call, self.gn_seen = [], [], []
+        self.first_call, self.batches = [], []
 
         def record(*_):
             ev = torch.cuda.Event(enable_timing=True)
@@ -665,6 +715,9 @@ class PathWatch:
 
         def pre_hook(module, args, kwargs):
             self.last_call[:] = [args, kwargs]
+            if not self.first_call:
+                self.first_call[:] = [args, kwargs]
+            self.batches.append(args[0].shape[0])
             record()
 
         def gn_hook(model):
@@ -732,7 +785,7 @@ def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
     and that every kernel ran as often as expected: the flash kernel once
     per self-attention a UNet call, and each GroupNorm's kernels as the
     launch plan predicts from the shape the module saw. Returns the launch
-    counts and the last UNet call's (args, kwargs)."""
+    counts, the last and the first UNet call's (args, kwargs)."""
     import numpy as np
 
     from faithdiff_tpu_torch.ops import _build
@@ -785,7 +838,7 @@ def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
         pixels=list(pixels), launches=counts, launches_as_planned=True,
         out_mean=float(out.mean()))
     print(label, json.dumps(result), flush=True)
-    return counts, watch.last_call
+    return counts, watch.last_call, watch.first_call
 
 
 def check_path_parity(torch, unet, args, kwargs):
@@ -831,7 +884,7 @@ def write_reference_weights(torch, pipe, root: str) -> dict:
 
 def run_cli(argv):
     """`faithdiff_tpu_torch.cli.main(argv)` with its output echoed; returns
-    {name: seconds} of the `restored` line's read / hdr / resize /
+    {name: seconds} of the `restored` line's read / encode / hdr / resize /
     pipeline / write split and the call's wall seconds."""
     import io
 
@@ -847,7 +900,8 @@ def run_cli(argv):
         fail(f"cli {argv[0]} returned {rc}")
     split = dict((k, float(v)) for k, v in
                  re.findall(r"(\w+_s)=([0-9.]+)", out.getvalue()))
-    if set(split) != {"read_s", "hdr_s", "resize_s", "pipeline_s", "write_s"}:
+    if set(split) != {"read_s", "encode_s", "hdr_s", "resize_s", "pipeline_s",
+                      "write_s"}:
         fail(f"cli printed no restore line: {out.getvalue()!r}")
     return dict(split, cli_wall_s=wall)
 
@@ -908,6 +962,7 @@ def run_cli_restore(torch, pipe, root: str) -> str:
     Returns the converted checkpoint dir."""
     import numpy as np
 
+    from faithdiff_tpu_torch import cli
     from faithdiff_tpu_torch.ops import _build
     from faithdiff_tpu_torch.utils import convert_cli
     from faithdiff_tpu_torch.utils.image import check_image_size
@@ -958,8 +1013,13 @@ def run_cli_restore(torch, pipe, root: str) -> str:
     got = read_png(os.path.join(root, "out", "photo.png"))
     h, w = CLI_PIXELS
     padded, w0, h0, _, _ = check_image_size(resize_lanczos(img, (2 * w, 2 * h)))
-    want = pipe(padded, torch.zeros((1, 77, 2048)), torch.zeros((1, 1280)),
-                seed=42, output_type="uint8")[:h0, :w0]
+    before = pipe.tile_chunk
+    pipe.tile_chunk = cli.TILE_CHUNK
+    try:
+        want = pipe(padded, torch.zeros((1, 77, 2048)), torch.zeros((1, 1280)),
+                    seed=42, output_type="uint8")[:h0, :w0]
+    finally:
+        pipe.tile_chunk = before
     if got.shape != want.shape:
         fail(f"cli_restore: output {got.shape}, in-memory {want.shape}")
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
@@ -979,11 +1039,12 @@ def run_cli_restore(torch, pipe, root: str) -> str:
 def run_cli_restore_tiled(torch, root: str, ckpt: str) -> None:
     """`cli_restore_tiled`: the CLI with `--upscale 2 --use_tile_vae --hdr
     0.5 --color_fix adain` on a seeded 1000x1000 PNG: a 2000x2000 restore,
-    9 latent tiles (UNet batch 18), the VAE encode, the denoise encoder
-    and the VAE decode over the tile grids of the JAX tiling formula, the
-    color fix streamed; launches as planned."""
+    9 latent tiles (18 UNet rows a step, in the CLI's chunks), the VAE
+    encode, the denoise encoder and the VAE decode over the tile grids of
+    the JAX tiling formula, the color fix streamed; launches as planned."""
     import numpy as np
 
+    from faithdiff_tpu_torch import cli
     from faithdiff_tpu_torch.config import DenoiseEncoderConfig, VAEConfig
     from faithdiff_tpu_torch.ops import _build
     from faithdiff_tpu_torch.utils.png import read_png, write_png
@@ -1024,7 +1085,7 @@ def run_cli_restore_tiled(torch, root: str, ckpt: str) -> None:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pipe = seen.pop("pipe")
     gn_unet, attn_unet = unet_counts(pipe)
-    unet_batch = seen["watch"].last_call[0][0].shape[0]
+    unet_batches = seen["watch"].batches
     unet_ms = seen["watch"].unet_ms()
     expected = seen["watch"].expected_launches(
         "cli_restore_tiled", "flash_attention_fwd", gn_unet, attn_unet)
@@ -1039,16 +1100,22 @@ def run_cli_restore_tiled(torch, root: str, ckpt: str) -> None:
     if tiles != want_tiles:
         fail(f"cli_restore_tiled: tiles {tiles}, the tiling formula gives "
              f"{want_tiles}")
-    if unet_batch != 2 * TILED_LATENT_TILES or len(unet_ms) != STEPS:
-        fail(f"cli_restore_tiled: UNet batch {unet_batch} over {len(unet_ms)} "
-             f"calls, expected {2 * TILED_LATENT_TILES} over {STEPS}")
+    # the CLI's chunks: ceil(9 / TILE_CHUNK) UNet calls a step, 18 rows in all
+    calls_per_step = -(-TILED_LATENT_TILES // cli.TILE_CHUNK)
+    if (sum(unet_batches) != 2 * TILED_LATENT_TILES * STEPS
+            or max(unet_batches) > 2 * cli.TILE_CHUNK
+            or len(unet_ms) != calls_per_step * STEPS):
+        fail(f"cli_restore_tiled: UNet batches {sorted(set(unet_batches))} over "
+             f"{len(unet_ms)} calls, expected {2 * TILED_LATENT_TILES} rows a "
+             f"step in {calls_per_step} calls")
     if counts != expected:
         fail(f"cli_restore_tiled: launch counts {counts}, expected {expected}")
     result = dict(
-        pixels=[side, side], tiles=tiles, unet_batch=unet_batch,
+        pixels=[side, side], tiles=tiles, unet_batches=sorted(set(unet_batches)),
+        unet_calls=len(unet_ms),
         host_pre_s=split["read_s"] + split["resize_s"], **split,
         vae_decode_s=seen["decode_s"], load_s=seen["load_s"],
-        unet_ms_median=sorted(unet_ms)[STEPS // 2], peak_mem_gib=peak,
+        unet_ms_median=median(unet_ms), peak_mem_gib=peak,
         out_mean=float(out.mean()), launches=counts, launches_as_planned=True)
     print("cli_restore_tiled", json.dumps(result), flush=True)
 
@@ -1078,6 +1145,409 @@ def check_vae_chunk_trap(torch) -> None:
         del q, k, v, out
         torch.cuda.empty_cache()
     print("vae_chunk_trap", json.dumps(row), flush=True)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def chunk_rows(args, rows: int, lo: int, hi: int):
+    """The UNet call's positional arguments cut to model rows [lo, hi):
+    every tensor with `rows` rows; the timestep stays whole."""
+    return tuple(a[lo:hi] if getattr(a, "ndim", 0) and a.shape[0] == rows else a
+                 for a in args)
+
+
+def check_chunk_parity(torch, unet, args, kwargs, chunk: int) -> None:
+    """`chunk_parity`: one UNet call over the 15 tiles of `restore_large`'s
+    first step, unchunked, against the same inputs run as chunks of
+    `chunk` tiles (2 * chunk model rows, each tile's CFG pair together),
+    on both attention paths, within CHUNK_TOL * max|ref|. Beside it, the
+    same call with its tiles in reverse order: the floor that other
+    orders of summation alone give at the same batch (cuBLAS's stream-K
+    GEMMs split K by an output tile's place)."""
+    rows = args[0].shape[0]
+    perm = torch.tensor([r for t in reversed(range(rows // 2))
+                         for r in (2 * t, 2 * t + 1)])
+    inverse = torch.argsort(perm)
+    result = {}
+    with torch.no_grad():
+        for packed in (False, True):
+            with attention_path(packed):
+                ref = unet(*args, **kwargs).float()
+                flipped = unet(*(a[perm.to(a.device)] if getattr(a, "ndim", 0)
+                                 and a.shape[0] == rows else a for a in args),
+                               **kwargs).float()[inverse.to(ref.device)]
+                got = torch.cat([unet(*chunk_rows(args, rows, lo, lo + 2 * chunk),
+                                      **kwargs).float()
+                                 for lo in range(0, rows, 2 * chunk)])
+            err = float((got - ref).abs().max())
+            floor = float((flipped - ref).abs().max())
+            scale = float(ref.abs().max())
+            result["packed" if packed else "default"] = dict(
+                max_abs_err=err, max_abs_ref=scale,
+                mean_abs_err=float((got - ref).abs().mean()),
+                reversed_max_abs_err=floor,
+                ok=bool(torch.isfinite(got).all()) and err <= CHUNK_TOL * scale)
+            del ref, got, flipped
+    result.update(tiles=rows // 2, chunk=chunk,
+                  calls=-(-rows // (2 * chunk)), tol=f"{CHUNK_TOL} * max|ref|")
+    print("chunk_parity", json.dumps(result), flush=True)
+    if not (result["default"]["ok"] and result["packed"]["ok"]):
+        fail(f"chunked and unchunked UNet calls disagree: {result}")
+
+
+def run_tile_chunk_sweep(torch, unet, args, kwargs) -> int:
+    """`tile_chunk_sweep`: one full-width UNet call at 128^2 latent tiles,
+    bf16, default attention path, for chunks of c in SWEEP_CHUNKS tiles
+    (UNet batch 2c, the restore's first tile pair repeated): the median of
+    3 calls after a warm-up (CUDA events) and the peak memory. Returns the
+    chunk of the lowest ms per tile whose peak leaves FREE_GIB_FOR_CAPTIONER
+    of the card free."""
+    from faithdiff_tpu_torch import cli
+
+    rows = args[0].shape[0]
+    pair = chunk_rows(args, rows, 0, 2)
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    table = []
+    with torch.no_grad(), attention_path(False):
+        for c in SWEEP_CHUNKS:
+            inputs = tuple(a.repeat(c, *([1] * (a.ndim - 1)))
+                           if getattr(a, "ndim", 0) else a for a in pair)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            unet(*inputs, **kwargs)
+            ms = []
+            for _ in range(3):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                out = unet(*inputs, **kwargs)
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if not bool(torch.isfinite(out).all()):
+                fail(f"tile_chunk_sweep: non-finite UNet output at chunk {c}")
+            table.append(dict(chunk=c, unet_batch=2 * c, ms=median(ms),
+                              ms_per_tile=median(ms) / c, ms_all=ms,
+                              peak_gib=peak, free_gib=total_gib - peak))
+            del inputs, out
+    fits = [r for r in table if r["free_gib"] >= FREE_GIB_FOR_CAPTIONER]
+    if not fits:
+        fail(f"tile_chunk_sweep: no chunk leaves {FREE_GIB_FOR_CAPTIONER} GiB free")
+    pick = min(fits, key=lambda r: r["ms_per_tile"])["chunk"]
+    # where the time per tile jumps: the pick against the next chunk up
+    for c in SWEEP_CHUNKS[SWEEP_CHUNKS.index(pick):][:2]:
+        inputs = tuple(a.repeat(c, *([1] * (a.ndim - 1)))
+                       if getattr(a, "ndim", 0) else a for a in pair)
+        with attention_path(False):
+            profile_call(torch, f"profile_chunk_{c}", unet, inputs, kwargs)
+        del inputs
+    print("tile_chunk_sweep", json.dumps(dict(
+        rows=table, total_gib=total_gib, pick=pick,
+        cli_tile_chunk=cli.TILE_CHUNK,
+        rule=f"lowest ms_per_tile with free_gib >= {FREE_GIB_FOR_CAPTIONER}")),
+        flush=True)
+    torch.cuda.empty_cache()
+    return pick
+
+
+def run_restore_4k(torch, pipe, ckpt_dir: str) -> dict:
+    """`restore_4k`: the pipeline with `use_tiled_vae` and the CLI's
+    `TILE_CHUNK` on a seeded 4096x4096 uint8 image (a 2048^2 photo at the
+    CLI's default --upscale 2): 49 latent tiles, 20 steps, canvas
+    checkpoints under `ckpt_dir`. Checks the output, finite latents,
+    ceil(49 / c) UNet calls a step at batch <= 2c and the planned
+    launches; then deletes the last two canvases, runs again and demands
+    2 * ceil(49 / c) UNet calls and the same bytes."""
+    import dataclasses
+
+    import numpy as np
+
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.pipelines.factory import _tiled_stages
+
+    chunk = cli.TILE_CHUNK
+    tiled = dataclasses.replace(
+        pipe, config=dataclasses.replace(pipe.config, use_tiled_vae=True),
+        tile_chunk=chunk, **_tiled_stages(pipe.vae, pipe.denoise_encoder, True))
+    gn_unet, attn_unet = unet_counts(tiled)
+    img = np.random.default_rng(14).integers(0, 256, FOUR_K_PIXELS + (3,),
+                                             dtype=np.uint8)
+    prompt, pooled = torch.zeros((1, 77, 2048)), torch.zeros((1, 1280))
+    calls_per_step = -(-FOUR_K_TILES // chunk)
+
+    def run(label):
+        watch = PathWatch(torch, tiled)
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        latents = tiled(img, prompt, pooled, seed=0, output_type="latent",
+                        checkpoint_dir=ckpt_dir)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = tiled.decode(latents, img, output_type="uint8")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = dict(_build.launches)
+        watch.remove()
+        if not bool(torch.isfinite(latents).all()):
+            fail(f"{label}: latents are not finite")
+        if out.shape != FOUR_K_PIXELS + (3,) or out.dtype != np.uint8:
+            fail(f"{label}: output {out.dtype} {out.shape}")
+        if max(watch.batches) > 2 * chunk:
+            fail(f"{label}: a UNet call at batch {max(watch.batches)} > {2 * chunk}")
+        expected = watch.expected_launches(label, "flash_attention_fwd",
+                                           gn_unet, attn_unet)
+        if counts != expected:
+            fail(f"{label}: launch counts {counts}, expected {expected}")
+        unet_ms = watch.unet_ms()
+        return out, counts, dict(
+            wall_s=t2 - t0, denoise_call_s=t1 - t0, decode_s=t2 - t1,
+            unet_calls=len(unet_ms), unet_batches=sorted(set(watch.batches)),
+            unet_ms_median=median(unet_ms) if unet_ms else None,
+            unet_ms_per_step=sum(unet_ms) / max(len(unet_ms) // calls_per_step, 1),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=counts, launches_as_planned=True)
+
+    out, counts, first = run("restore_4k")
+    if first["unet_calls"] != calls_per_step * STEPS:
+        fail(f"restore_4k: {first['unet_calls']} UNet calls, expected "
+             f"{calls_per_step * STEPS}")
+    canvases = sorted(n for n in os.listdir(ckpt_dir) if n.startswith("canvas_step"))
+    if len(canvases) != STEPS:
+        fail(f"restore_4k: canvases {canvases}")
+    for step in (STEPS - 2, STEPS - 1):
+        os.remove(os.path.join(ckpt_dir, f"canvas_step{step:04d}.npy"))
+    resumed, _, second = run("restore_4k_resume")
+    if second["unet_calls"] != 2 * calls_per_step:
+        fail(f"restore_4k_resume: {second['unet_calls']} UNet calls, expected "
+             f"{2 * calls_per_step}")
+    if not np.array_equal(out, resumed):
+        diff = np.abs(out.astype(np.int16) - resumed.astype(np.int16))
+        fail(f"restore_4k_resume: {int((diff.max(axis=2) > 0).sum())} pixels "
+             f"differ from the uninterrupted run, by up to {int(diff.max())}")
+    print("restore_4k", json.dumps(dict(
+        first, pixels=list(FOUR_K_PIXELS), tiles=FOUR_K_TILES, tile_chunk=chunk,
+        steps=STEPS, canvases=len(canvases), out_mean=float(out.mean()),
+        resume=dict(second, identical_bytes=True))), flush=True)
+    return counts
+
+
+def write_tokenizer_dirs(root: str) -> str:
+    """SDXL-layout `tokenizer/` and `tokenizer_2/` under `root` over a
+    synthetic vocabulary of CLIP's size, 49408: the 256 byte symbols, the
+    same with `</w>`, 48894 merges that build lower-case words of up to
+    four letters, then `<|startoftext|>` (49406) and `<|endoftext|>`
+    (49407). `tokenizer_2` pads with `!` (id 0), as SDXL's does."""
+    from faithdiff_tpu_torch.models.tokenizer import bytes_to_unicode
+
+    symbols = list(bytes_to_unicode().values())
+    vocab = symbols + [s + "</w>" for s in symbols]
+    n_merges = 49152 - 256 - 2
+    letters = "etaoinshrdlcumwfgypbvkjxqz"
+    merges, words, seen = [], list(letters), set(vocab)
+    for word in words:
+        for b in letters:
+            for second in (b, b + "</w>"):
+                token = word + second
+                if token not in seen and len(merges) < n_merges:
+                    seen.add(token)
+                    merges.append(f"{word} {second}")
+                    vocab.append(token)
+                    if not second.endswith("</w>"):
+                        words.append(token)
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    if len(vocab) != 49408 or len(merges) != n_merges:
+        fail(f"synthetic vocabulary: {len(vocab)} symbols, {len(merges)} merges")
+    special = {k: {"content": v, "lstrip": False, "normalized": True,
+                   "rstrip": False, "single_word": False}
+               for k, v in (("bos_token", "<|startoftext|>"),
+                            ("eos_token", "<|endoftext|>"),
+                            ("unk_token", "<|endoftext|>"))}
+    for name, pad in (("tokenizer", "<|endoftext|>"), ("tokenizer_2", "!")):
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "vocab.json"), "w") as f:
+            json.dump({t: i for i, t in enumerate(vocab)}, f)
+        with open(os.path.join(d, "merges.txt"), "w") as f:
+            f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+        with open(os.path.join(d, "special_tokens_map.json"), "w") as f:
+            json.dump(dict(special, pad_token=pad), f)
+        with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+            json.dump({"model_max_length": 77, "pad_token": pad,
+                       "tokenizer_class": "CLIPTokenizer"}, f)
+    return root
+
+
+def check_text_towers(torch, tok_root: str) -> None:
+    """`text_towers`: the full-width SDXLTextEncoder, bf16, seeded weights,
+    on the card against the same weights in fp32 on the CPU over 4
+    prompts tokenised by the port's BPE (one past 77 tokens): the largest
+    error within 5e-2 * (1 + max|ref|), the mean error within
+    TOWER_MEAN_TOL * mean|ref|; ms per encode of one prompt and of four."""
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.models.clip_text import SDXLTextEncoder
+    from faithdiff_tpu_torch.models.tokenizer import SDXLTokenizer
+
+    tok = SDXLTokenizer(os.path.join(tok_root, "tokenizer"),
+                        os.path.join(tok_root, "tokenizer_2"))
+    ids_1, ids_2 = tok(TOWER_PROMPTS)
+    truncated = sum(len(tok.tok_1.encode(p)) > 75 for p in TOWER_PROMPTS)
+    if ids_1.shape != (4, 77) or truncated != 1 or int(ids_1[0, -1]) != 49407:
+        fail(f"text_towers: ids {ids_1.shape}, {truncated} truncated prompts")
+    enc = cli.build_text_encoder(False, "cuda", seed=5)
+    ref_enc = SDXLTextEncoder().eval().requires_grad_(False)
+    ref_enc.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
+    t1, t2 = torch.from_numpy(ids_1), torch.from_numpy(ids_2)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = ref_enc(t1, t2)
+        cpu_s = time.perf_counter() - t0
+        got = enc(t1, t2)
+
+        def timed(n):
+            a, b = t1[:n].cuda(), t2[:n].cuda()
+            return median([time_ms(torch, lambda: enc(a, b), 3, 1) for _ in range(3)])
+
+        ms_1, ms_4 = timed(1), timed(4)
+    rows = {}
+    for name, g, r in (("prompt_embeds", got[0], ref[0]), ("pooled", got[1], ref[1])):
+        g = g.float().cpu()
+        err = (g - r).abs()
+        rows[name] = dict(shape=list(g.shape), max_abs_err=float(err.max()),
+                          max_abs_ref=float(r.abs().max()),
+                          mean_abs_err=float(err.mean()),
+                          mean_abs_ref=float(r.abs().mean()),
+                          elementwise_ok=bool((err <= 5e-2 * (1 + r.abs())).all()),
+                          ok=bool(torch.isfinite(g).all()
+                                  and err.max() <= 5e-2 * (1 + r.abs().max())
+                                  and err.mean() <= TOWER_MEAN_TOL * r.abs().mean()))
+    print("text_towers", json.dumps(dict(
+        rows, ms_per_encode_1=ms_1, ms_per_encode_4=ms_4, cpu_fp32_s=cpu_s,
+        params_b=sum(p.numel() for p in enc.parameters()) / 1e9,
+        tol=f"max 5e-2 * (1 + max|ref|), mean {TOWER_MEAN_TOL} * mean|ref|")),
+        flush=True)
+    if not all(r["ok"] for r in rows.values()):
+        fail(f"text_towers: card and CPU disagree: {rows}")
+    del enc, ref_enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_cli_restore_prompt(torch, pipe, root: str, ckpt: str) -> None:
+    """`cli_restore_prompt`: seeded full-width towers written as SDXL ships
+    them (`text_encoder*/model.safetensors`, fp16), tokenizer dirs of the
+    synthetic 49408-symbol vocabulary, `convert_cli`, then the CLI with
+    `--tokenizer_dir`, a caption JSON and `--negative_prompt blurry` on
+    `cli_restore`'s PNG. Its PNG must equal, byte for byte, the in-memory
+    pipeline (the CLI's tile chunk) given the port's own encodes of the
+    same texts, and differ from `cli_restore`'s zero-embed output."""
+    import numpy as np
+
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.models.tokenizer import SDXLTokenizer
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils import convert_cli
+    from faithdiff_tpu_torch.utils.convert import TEXT_TOWERS
+    from faithdiff_tpu_torch.utils.image import check_image_size
+    from faithdiff_tpu_torch.utils.png import read_png
+    from faithdiff_tpu_torch.utils.resample import resize_lanczos
+    from faithdiff_tpu_torch.utils.safetensors import save_file
+
+    t0 = time.perf_counter()
+    enc = cli.build_text_encoder(False, "cuda", seed=7)
+    for tower in TEXT_TOWERS:
+        d = os.path.join(root, "sdxl", tower)
+        os.makedirs(d, exist_ok=True)
+        save_file({k: v.half() for k, v in getattr(enc, tower).state_dict().items()},
+                  os.path.join(d, "model.safetensors"))
+    tower_bytes = sum(os.path.getsize(os.path.join(root, "sdxl", t, "model.safetensors"))
+                      for t in TEXT_TOWERS)
+    del enc
+    tok_root = write_tokenizer_dirs(os.path.join(root, "tok"))
+    os.makedirs(os.path.join(root, "json"))
+    with open(os.path.join(root, "json", "photo.json"), "w") as f:
+        json.dump({"caption": PROMPT_CAPTION}, f)
+    t1 = time.perf_counter()
+    convert_cli.main(["--sdxl_dir", os.path.join(root, "sdxl"),
+                      "--faithdiff_bin", os.path.join(root, "FaithDiff.bin"),
+                      "--vae_dir", os.path.join(root, "vae"), "--out_dir", ckpt])
+    t2 = time.perf_counter()
+
+    seen_towers = []
+    build = cli.build_text_encoder
+
+    def watched(*a, **k):
+        seen_towers.append(build(*a, **k))
+        return seen_towers[-1]
+
+    gn_unet, attn_unet = unet_counts(pipe)
+    cli.build_text_encoder = watched
+    try:
+        with cli_pipeline_watch(torch) as seen:
+            _build.launches.clear()
+            split = run_cli(["restore", "--img_dir", os.path.join(root, "in"),
+                             "--save_dir", os.path.join(root, "out_prompt"),
+                             "--checkpoint_dir", ckpt, "--tokenizer_dir", tok_root,
+                             "--json_dir", os.path.join(root, "json"),
+                             "--negative_prompt", "blurry"])
+            counts = dict(_build.launches)
+    finally:
+        cli.build_text_encoder = build
+    seen.pop("pipe")
+    expected = seen["watch"].expected_launches(
+        "cli_restore_prompt", "flash_attention_fwd", gn_unet, attn_unet)
+    if counts != expected:
+        fail(f"cli_restore_prompt: launch counts {counts}, expected {expected}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the in-memory side: the converted towers, the port's tokenizer, the
+    # caption as the CLI trims it
+    (cli_enc,) = seen_towers
+    enc = build(False, "cuda", cli._load_dir(os.path.join(ckpt, "text_encoders")))
+    mine, theirs = enc.state_dict(), cli_enc.state_dict()
+    if sorted(mine) != sorted(theirs) or not all(torch.equal(mine[k], theirs[k])
+                                                for k in mine):
+        fail("cli_restore_prompt: the CLI's towers differ from the written ones")
+    tok = SDXLTokenizer(os.path.join(tok_root, "tokenizer"),
+                        os.path.join(tok_root, "tokenizer_2"))
+    caption = cli.trim_caption(PROMPT_CAPTION)
+    with torch.no_grad():
+        pe, pooled = (x.float() for x in enc(*map(torch.from_numpy, tok(caption))))
+        npe, npooled = (x.float() for x in enc(*map(torch.from_numpy, tok("blurry"))))
+    del enc, cli_enc, seen_towers[:]
+    img = read_png(os.path.join(root, "in", "photo.png"))
+    h, w = img.shape[:2]
+    padded, w0, h0, _, _ = check_image_size(resize_lanczos(img, (2 * w, 2 * h)))
+    before = pipe.tile_chunk
+    pipe.tile_chunk = cli.TILE_CHUNK
+    try:
+        want = pipe(padded, pe, pooled, negative_prompt_embeds=npe,
+                    negative_pooled_prompt_embeds=npooled, seed=42,
+                    output_type="uint8")[:h0, :w0]
+    finally:
+        pipe.tile_chunk = before
+    got = read_png(os.path.join(root, "out_prompt", "photo.png"))
+    zero = read_png(os.path.join(root, "out", "photo.png"))
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        fail(f"cli_restore_prompt: {int((diff.max(axis=2) > 0).sum())} pixels "
+             f"differ from the in-memory pipeline, by up to {int(diff.max())}")
+    if np.array_equal(got, zero):
+        fail("cli_restore_prompt: the prompt left the zero-embed output unchanged")
+    result = dict(
+        tower_file_bytes=tower_bytes, write_towers_s=t1 - t0, convert_s=t2 - t1,
+        load_s=seen["load_s"], **split, caption=caption,
+        pixels_differing_from_zero_embeds=int(
+            (np.abs(got.astype(np.int16) - zero).max(axis=2) > 0).sum()),
+        identical_to_in_memory=True, launches=counts, launches_as_planned=True)
+    print("cli_restore_prompt", json.dumps(result), flush=True)
 
 
 # lower-cased kernel-name fragments -> the layer they belong to, first
@@ -1491,6 +1961,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from faithdiff_tpu_torch import cli
     from faithdiff_tpu_torch.ops import _build
 
     card = card_line()
@@ -1517,11 +1988,11 @@ def main() -> int:
 
     with phase("restore"):
         pipe = build_restore(torch)
-        counts, (args, kwargs) = run_restore(torch, pipe, packed=False)
+        counts, (args, kwargs), _ = run_restore(torch, pipe, packed=False)
         with attention_path(False):
             profile_call(torch, "profile", pipe.unet, args, kwargs)
     with phase("restore_packed"):
-        packed_counts, (args, kwargs) = run_restore(torch, pipe, packed=True)
+        packed_counts, (args, kwargs), _ = run_restore(torch, pipe, packed=True)
         with attention_path(True):
             profile_call(torch, "profile_packed", pipe.unet, args, kwargs)
         check_path_parity(torch, pipe.unet, args, kwargs)
@@ -1538,17 +2009,39 @@ def main() -> int:
             ckpt = run_cli_restore(torch, pipe, root)
         with phase("cli_restore_tiled"):
             run_cli_restore_tiled(torch, root, ckpt)
+        with phase("cli_restore_prompt"):
+            run_cli_restore_prompt(torch, pipe, root, ckpt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     with phase("restore_large"):
-        _, (args, kwargs) = run_restore(torch, pipe, packed=False,
-                                        pixels=LARGE_PIXELS, label="restore_large")
+        _, (args, kwargs), first = run_restore(torch, pipe, packed=False,
+                                               pixels=LARGE_PIXELS,
+                                               label="restore_large")
     if args[0].shape[0] != 2 * LARGE_TILES:
         fail(f"restore_large: UNet batch {args[0].shape[0]}, expected "
              f"{2 * LARGE_TILES} ({LARGE_TILES} tiles)")
-    del pipe, args, kwargs
+    with phase("chunk_parity"):
+        check_chunk_parity(torch, pipe.unet, *first, cli.TILE_CHUNK)
+    del first
+    with phase("tile_chunk_sweep"):
+        run_tile_chunk_sweep(torch, pipe.unet, args, kwargs)
+    del args, kwargs
+    # the canvases of restore_4k go whether the phase passes or fails
+    ckpt_dir = os.path.join(_build.BUILD_DIR, f"restore_4k_{os.getpid()}")
+    try:
+        with phase("restore_4k"):
+            run_restore_4k(torch, pipe, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    tok_root = os.path.join(_build.BUILD_DIR, f"tokenizer_{os.getpid()}")
+    try:
+        with phase("text_towers"):
+            check_text_towers(torch, write_tokenizer_dirs(tok_root))
+    finally:
+        shutil.rmtree(tok_root, ignore_errors=True)
     with phase("vae_chunk_trap"):
         check_vae_chunk_trap(torch)
     with phase("bench"):

@@ -1,22 +1,31 @@
 """Command-line entry points (counterpart of `faithdiff_tpu/cli.py`).
 
     python -m faithdiff_tpu_torch.cli restore --img_dir in/ --save_dir out/ \\
-        [--checkpoint_dir ckpts/] [--upscale 2] [--use_tile_vae] [--hdr 0.5]
+        [--checkpoint_dir ckpts/] [--tokenizer_dir sdxl/] [--json_dir caps/] \\
+        [--negative_prompt TEXT] [--canvas_resume_dir resume/] \\
+        [--upscale 2] [--use_tile_vae] [--hdr 0.5]
+    python -m faithdiff_tpu_torch.cli embed --caption_dir caps/ \\
+        --save_dir embeds/ [--tokenizer_dir sdxl/] [--text_encoder_dir T]
 
 `restore` takes the JAX CLI's flags with the same defaults and runs its
 loop: every `*.png` of `--img_dir` in sorted order, skipping those whose
 output exists; optional HDR, then a Pillow-exact LANCZOS upscale, a
 replicate pad to /8, the pipeline, the crop back and a PNG write.
 `--checkpoint_dir` reads what `faithdiff_tpu_torch.utils.convert_cli`
-writes (`unet/`, `vae/`, `denoise_encoder/` of safetensors files); a
-missing directory means a seeded random init of that model. It runs on
-the CUDA card unless `--device cpu` is given.
+writes (`unet/`, `vae/`, `denoise_encoder/`, `text_encoders/` of
+safetensors files); a missing directory means a seeded random init of
+that model. With `--tokenizer_dir` (SDXL's `tokenizer/` and
+`tokenizer_2/`) and `text_encoders/`, the trimmed caption of
+`--json_dir` and `--negative_prompt` go through the two CLIP text towers;
+without them the prompt embeddings are zeros, as in the JAX CLI.
+`--canvas_resume_dir` keeps each step's canvas of a restore above
+`host_loop_tile_threshold` tiles in a directory per image, from which a
+re-run resumes. The pipeline runs `TILE_CHUNK` tiles a UNet call. Both
+commands run on the CUDA card unless `--device cpu` is given.
 
 What the port does not serve yet raises NotImplementedError naming its
-ROADMAP item: the `caption`, `embed`, `train` and `metrics` commands,
-`--use_fp8`, `--canvas_resume_dir`, `--tile_devices` above 1,
-`--tokenizer_dir` (without it the prompt embeddings are zeros, as in the
-JAX CLI without a text encoder) and JPEG inputs.
+ROADMAP item: the `caption`, `train` and `metrics` commands, `--use_fp8`,
+`--tile_devices` above 1 and JPEG inputs.
 """
 from __future__ import annotations
 
@@ -29,33 +38,63 @@ import time
 
 import torch
 
-from .config import (PipelineConfig, tiny_denoise_encoder_config,
+from .config import (CLIPTextConfig, PipelineConfig,
+                     tiny_denoise_encoder_config, tiny_text_encoder_configs,
                      tiny_unet_config, tiny_vae_config)
-from .pipelines.factory import build_pipeline
+from .models.clip_text import SDXLTextEncoder
+from .models.tokenizer import HashTokenizer, SDXLTokenizer
+from .pipelines.factory import build_pipeline, random_init_
+from .training.text_embeds import precompute_embeds, trim_caption
 from .utils.image import check_image_size, create_hdr_effect
 from .utils.png import read_png, write_png
 from .utils.resample import resize_lanczos
 from .utils.safetensors import load_file
 
-_TEXT_TOWERS = "ROADMAP §1.2 (CLIP text towers and tokenizer)"
 _RESTORE_OPTIONS = "ROADMAP §1.1 (restore pipeline options)"
 _NOT_YET = {
     "caption": "ROADMAP §1.3 (caption CLI, captioner weights and BSRNet)",
-    "embed": _TEXT_TOWERS,
     "train": "ROADMAP §1.4 (training and data)",
     "metrics": "ROADMAP §1.6 (eval)",
 }
+# tiles per UNet call of the restore: the chunk of the lowest UNet time per
+# tile whose peak leaves 40 GiB of an 80 GB card to the captioner
+# (`chip_smoke.py` tile_chunk_sweep on an H100, PERF.md: 81.8 ms a tile at
+# 8, 139 ms at 12, where the 77-token cross-attention's score matrix
+# passes the gate of `ops.attention.chunked_attention`)
+TILE_CHUNK = 8
 
 
-def trim_caption(caption: str, drop_words: int = 3,
-                 keep_sentences: int = 2) -> str:
-    """Drop the first `drop_words` words and keep the first
-    `keep_sentences` sentences (the trim the reference applies to LLaVA
-    captions at training and at inference)."""
-    words = caption.split(" ")
-    caption = " ".join(words[drop_words:])
-    sentences = caption.split(".")
-    return ".".join(sentences[:keep_sentences]).strip()
+def _load_dir(path: str) -> dict:
+    """Every `*.safetensors` file of a directory, merged in sorted order."""
+    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no *.safetensors under {path}")
+    sd = {}
+    for f in files:
+        sd.update(load_file(f))
+    return sd
+
+
+def build_text_encoder(tiny: bool, device, state_dict=None,
+                       seed: int = 0) -> SDXLTextEncoder:
+    """Both CLIP text towers on `device`: the full-width SDXL pair in bf16,
+    or under `tiny` the JAX CLI's tiny pair in fp32; weights from
+    `state_dict` (strict) or a seeded random init."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("text towers: device 'cuda' requested but CUDA is "
+                           "not available (pass --device cpu)")
+    configs = (tiny_text_encoder_configs() if tiny else
+               (CLIPTextConfig.sdxl_text_encoder(),
+                CLIPTextConfig.sdxl_text_encoder_2()))
+    with device:
+        enc = SDXLTextEncoder(*configs, dtype=torch.float32 if tiny
+                              else torch.bfloat16)
+    if state_dict is None:
+        random_init_(enc, torch.Generator(device=device).manual_seed(seed))
+    else:
+        enc.load_state_dict(state_dict, strict=True)
+    return enc.eval().requires_grad_(False)
 
 
 def _add_restore_args(p: argparse.ArgumentParser) -> None:
@@ -80,15 +119,20 @@ def _add_restore_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--hdr", type=float, default=0.0)
     p.add_argument("--checkpoint_dir", default=None,
                    help="dir with converted params (unet/ vae/ "
-                        "denoise_encoder/); omit for random init")
+                        "denoise_encoder/ text_encoders/); omit for random "
+                        "init")
     p.add_argument("--tokenizer_dir", default=None,
-                   help=f"not served yet: {_TEXT_TOWERS}")
+                   help="dir with SDXL's tokenizer/ and tokenizer_2/; with "
+                        "text_encoders/ the prompts are encoded")
     p.add_argument("--tile_devices", type=int, default=1,
                    help="1 only: multi-GPU tiles are ROADMAP §1.5")
     p.add_argument("--negative_prompt", default="",
-                   help="needs the text towers; ignored with a warning")
+                   help="real negative prompt text; empty keeps zero "
+                        "negative embeds (needs the text towers)")
     p.add_argument("--canvas_resume_dir", default=None,
-                   help=f"not served yet: {_RESTORE_OPTIONS}")
+                   help="per-step canvas checkpoints, a directory per "
+                        "image: a crashed large restore resumes at its next "
+                        "step")
     p.add_argument("--tiny", action="store_true",
                    help="tiny test-config models in fp32")
     p.add_argument("--device", default="cuda",
@@ -100,13 +144,9 @@ def _refuse_unserved(args, images) -> None:
     weight is read."""
     if args.use_fp8:
         raise NotImplementedError(f"--use_fp8: {_RESTORE_OPTIONS}")
-    if args.canvas_resume_dir:
-        raise NotImplementedError(f"--canvas_resume_dir: {_RESTORE_OPTIONS}")
     if args.tile_devices != 1:
         raise NotImplementedError(
             f"--tile_devices {args.tile_devices}: ROADMAP §1.5 (multi-GPU)")
-    if args.tokenizer_dir:
-        raise NotImplementedError(f"--tokenizer_dir: {_TEXT_TOWERS}")
     jpegs = [p for p in images if not p.lower().endswith(".png")]
     if jpegs:
         raise NotImplementedError(
@@ -116,20 +156,13 @@ def _refuse_unserved(args, images) -> None:
 
 def load_checkpointed_pipeline(args):
     """The pipeline of the restore flags, its weights from
-    `--checkpoint_dir` where a model's directory exists."""
+    `--checkpoint_dir` where a model's directory exists, `TILE_CHUNK`
+    tiles a UNet call."""
     def maybe(name):
         if not args.checkpoint_dir:
             return None
         full = os.path.join(args.checkpoint_dir, name)
-        if not os.path.isdir(full):
-            return None
-        files = sorted(glob.glob(os.path.join(full, "*.safetensors")))
-        if not files:
-            raise FileNotFoundError(f"no *.safetensors under {full}")
-        sd = {}
-        for f in files:
-            sd.update(load_file(f))
-        return sd
+        return _load_dir(full) if os.path.isdir(full) else None
 
     pipeline_config = PipelineConfig(
         num_inference_steps=args.num_inference_steps,
@@ -152,7 +185,31 @@ def load_checkpointed_pipeline(args):
         unet_state_dict=maybe("unet"),
         vae_state_dict=maybe("vae"),
         denoise_encoder_state_dict=maybe("denoise_encoder"),
-        device=args.device, **kwargs)
+        device=args.device, tile_chunk=TILE_CHUNK, **kwargs)
+
+
+def make_text_encoder(args):
+    """text -> (prompt embeds, pooled), fp32, over the two towers of
+    `<checkpoint_dir>/text_encoders/` and the tokenizers of
+    `--tokenizer_dir`; None without either (zero embeds)."""
+    te_dir = (os.path.join(args.checkpoint_dir, "text_encoders")
+              if args.checkpoint_dir else "")
+    if not (args.tokenizer_dir and te_dir and os.path.isdir(te_dir)):
+        if args.tokenizer_dir:
+            print(f"WARNING: --tokenizer_dir without {te_dir or '--checkpoint_dir'}"
+                  "/text_encoders; using zero prompt embeds")
+        return None
+    tok = SDXLTokenizer(os.path.join(args.tokenizer_dir, "tokenizer"),
+                        os.path.join(args.tokenizer_dir, "tokenizer_2"))
+    enc = build_text_encoder(args.tiny, args.device, _load_dir(te_dir))
+
+    @torch.no_grad()
+    def encode(text: str):
+        ids_1, ids_2 = tok(text)
+        pe, pooled = enc(torch.from_numpy(ids_1), torch.from_numpy(ids_2))
+        return pe.float(), pooled.float()
+
+    return encode
 
 
 def cmd_restore(argv) -> int:
@@ -164,15 +221,18 @@ def cmd_restore(argv) -> int:
     _refuse_unserved(args, images)
 
     pipe = load_checkpointed_pipeline(args)
-    if args.negative_prompt:
+    encode = make_text_encoder(args)
+    if args.negative_prompt and encode is None:
         print("WARNING: --negative_prompt ignored (no text-encoder "
               "checkpoint); using zero negative embeds")
+    neg_pe = neg_pooled = None
+    if args.negative_prompt and encode is not None:
+        neg_pe, neg_pooled = encode(args.negative_prompt)
     os.makedirs(args.save_dir, exist_ok=True)
     cross_dim = pipe.unet.config.cross_attention_dim
     pooled_dim = (pipe.unet.config.projection_class_embeddings_input_dim
                   - 6 * pipe.unet.config.addition_time_embed_dim)
-    prompt_embeds = torch.zeros((1, 77, cross_dim))
-    pooled = torch.zeros((1, pooled_dim))
+    zero_embeds = (torch.zeros((1, 77, cross_dim)), torch.zeros((1, pooled_dim)))
     for path in images:
         name = os.path.splitext(os.path.basename(path))[0]
         out_path = os.path.join(args.save_dir, f"{name}.png")
@@ -181,14 +241,21 @@ def cmd_restore(argv) -> int:
             continue
         t0 = time.perf_counter()
         img = read_png(path)
+        caption = ""
         if args.json_dir:
             jpath = os.path.join(args.json_dir, f"{name}.json")
             if os.path.exists(jpath):
                 with open(jpath) as f:
                     caption = trim_caption(json.load(f)["caption"])
-                print(f"caption of {name} not used: {_TEXT_TOWERS}: "
-                      f"{caption!r}")
+        if caption and encode is None:
+            print(f"caption of {name} not used (no --tokenizer_dir and "
+                  f"text_encoders/ checkpoint): {caption!r}")
         t1 = time.perf_counter()
+        prompt_embeds, pooled = (zero_embeds if encode is None
+                                 else encode(caption))
+        ck = ({"checkpoint_dir": os.path.join(args.canvas_resume_dir, name)}
+              if args.canvas_resume_dir else {})
+        t1e = time.perf_counter()
         if args.hdr > 0:
             img = create_hdr_effect(img, args.hdr, device=args.device)
         t2 = time.perf_counter()
@@ -197,13 +264,65 @@ def cmd_restore(argv) -> int:
         padded, w0, h0, _, _ = check_image_size(img)
         t3 = time.perf_counter()
         out = pipe(padded, prompt_embeds, pooled, seed=args.seed,
-                   output_type="uint8")
+                   negative_prompt_embeds=neg_pe,
+                   negative_pooled_prompt_embeds=neg_pooled,
+                   output_type="uint8", **ck)
         t4 = time.perf_counter()
         write_png(out_path, out[:h0, :w0])
         t5 = time.perf_counter()
         print(f"restored {name} -> {out_path}: read_s={t1 - t0:.4f} "
-              f"hdr_s={t2 - t1:.4f} resize_s={t3 - t2:.4f} "
+              f"encode_s={t1e - t1:.4f} hdr_s={t2 - t1e:.4f} "
+              f"resize_s={t3 - t2:.4f} "
               f"pipeline_s={t4 - t3:.4f} write_s={t5 - t4:.4f}")
+    return 0
+
+
+def cmd_embed(argv) -> int:
+    """Stem-keyed prompt embeddings for training, and the empty prompt's
+    `__null__.npz` that caption dropout takes."""
+    p = argparse.ArgumentParser("embed")
+    p.add_argument("--caption_dir", required=True,
+                   help=".txt or .json caption files, one per sample stem")
+    p.add_argument("--save_dir", required=True)
+    p.add_argument("--tokenizer_dir", default=None,
+                   help="dir with tokenizer/ tokenizer_2/; omit for the "
+                        "hash tokenizer (smoke runs only)")
+    p.add_argument("--text_encoder_dir", default=None,
+                   help="the two towers as convert_cli writes them "
+                        "(text_encoders/); omit for random init (smoke runs "
+                        "only)")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny text towers in fp32")
+    p.add_argument("--no_trim", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the towers run on")
+    args = p.parse_args(argv)
+
+    if args.tokenizer_dir:
+        tok = SDXLTokenizer(os.path.join(args.tokenizer_dir, "tokenizer"),
+                            os.path.join(args.tokenizer_dir, "tokenizer_2"))
+    else:
+        print("WARNING: no --tokenizer_dir; using the hash tokenizer "
+              "(smoke runs only)")
+        tok = HashTokenizer(vocab_size=128 if args.tiny else 49408)
+    if args.text_encoder_dir:
+        enc = build_text_encoder(args.tiny, args.device,
+                                 _load_dir(args.text_encoder_dir))
+    else:
+        print("WARNING: no --text_encoder_dir; random-init towers "
+              "(smoke runs only)")
+        enc = build_text_encoder(args.tiny, args.device)
+
+    @torch.no_grad()
+    def encode(ids_1, ids_2):
+        return enc(torch.from_numpy(ids_1), torch.from_numpy(ids_2))
+
+    files = sorted(sum([glob.glob(os.path.join(args.caption_dir, e))
+                        for e in ("*.txt", "*.json")], []))
+    n = precompute_embeds(files, args.save_dir, tok, encode,
+                          trim=not args.no_trim)
+    print(f"wrote {n} embedding files to {args.save_dir} "
+          "(incl. the null-prompt embedding)")
     return 0
 
 
@@ -213,8 +332,9 @@ def _not_yet(command: str):
     return run
 
 
-COMMANDS = {"restore": cmd_restore,
-            **{name: _not_yet(name) for name in _NOT_YET}}
+COMMANDS = {"restore": cmd_restore, "caption": _not_yet("caption"),
+            "embed": cmd_embed, "train": _not_yet("train"),
+            "metrics": _not_yet("metrics")}
 
 
 def main(argv=None) -> int:

@@ -1,14 +1,15 @@
 """Configuration dataclasses of the restore path.
 
 The port's own copy of the fields of `faithdiff_tpu/config.py` that the
-UNet, VAE, denoise encoder, schedulers and pipeline read. The defaults are
+UNet, VAE, denoise encoder, CLIP text towers, schedulers and pipeline
+read. The defaults are
 the full-width SDXL / FaithDiff configuration; `tiny_*_config` are the test
 sizes (same topology, small widths).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +97,38 @@ class DenoiseEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """One CLIP text tower of SDXL's prompt encoder."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 77
+    hidden_act: str = "quick_gelu"
+    layer_norm_eps: float = 1e-5
+    projection_dim: Optional[int] = None  # set for text_encoder_2 (bigG)
+
+    @staticmethod
+    def sdxl_text_encoder() -> "CLIPTextConfig":
+        """openai/clip-vit-large-patch14 text tower (SDXL text_encoder)."""
+        return CLIPTextConfig()
+
+    @staticmethod
+    def sdxl_text_encoder_2() -> "CLIPTextConfig":
+        """laion/CLIP-ViT-bigG-14 text tower (SDXL text_encoder_2)."""
+        return CLIPTextConfig(
+            hidden_size=1280,
+            intermediate_size=5120,
+            num_hidden_layers=32,
+            num_attention_heads=20,
+            hidden_act="gelu",
+            projection_dim=1280,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
     """Shared diffusion-process parameters (SDXL scheduler config)."""
 
@@ -160,3 +193,11 @@ def tiny_denoise_encoder_config() -> DenoiseEncoderConfig:
         norm_num_groups=8,
         tile_sample_min_size=64,
     )
+
+
+def tiny_text_encoder_configs() -> Tuple[CLIPTextConfig, CLIPTextConfig]:
+    """The two towers at the JAX CLI's `embed --tiny` sizes: vocab 128,
+    width 32, 2 layers, 4 heads; the second projects to 64."""
+    tiny = CLIPTextConfig(vocab_size=128, hidden_size=32, intermediate_size=64,
+                          num_hidden_layers=2, num_attention_heads=4)
+    return tiny, dataclasses.replace(tiny, projection_dim=64)

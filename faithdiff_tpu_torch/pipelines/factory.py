@@ -61,10 +61,12 @@ def build_pipeline(
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
     seed: int = 0,
+    tile_chunk: Optional[int] = None,
 ) -> FaithDiffPipeline:
     """Build the pipeline on `device` in `dtype`. Each model loads its state
     dict (strict) or, when it is None, gets `random_init_` from a generator
-    seeded with `seed` on the device."""
+    seeded with `seed` on the device. `tile_chunk` caps the tiles of one
+    UNet call (None: every tile in one call)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_pipeline: device 'cuda' requested but CUDA "
@@ -88,6 +90,7 @@ def build_pipeline(
         ddpm_scheduler=DDPMScheduler(scheduler_config),
         config=pipeline_config,
         vae_scaling_factor=vae_config.scaling_factor,
+        tile_chunk=tile_chunk,
         **_tiled_stages(vae, denoise_encoder, pipeline_config.use_tiled_vae))
 
 

@@ -1,20 +1,29 @@
 """The FaithDiff tiled restoration pipeline (counterpart of
-`faithdiff_tpu/pipelines/faithdiff.py`, single-batch path).
+`faithdiff_tpu/pipelines/faithdiff.py`).
 
 denoise encoder LQ features -> VAE encode + DDPM noise to t=999 (or pure
-noise) -> Euler loop over Gaussian-blended latent tiles, all tiles' CFG
-pairs in one UNet call ([neg_0, pos_0, neg_1, pos_1, ...], fusion group
-size 2) -> VAE decode -> color fix. Under `config.use_tiled_vae` the
-factory's stages run the denoise encoder and the VAE over blended tiles,
-and the color fix streams by windows into a host canvas. Public layouts
-follow the JAX package:
-a [H, W, 3] uint8 or float input, NHWC latents in and out; the models run
-NCHW inside. `seed` drives torch.Generators.
+noise) -> Euler loop over Gaussian-blended latent tiles, the tiles' CFG
+pairs in UNet calls of at most `tile_chunk` tiles ([neg_0, pos_0, neg_1,
+pos_1, ...], fusion group size 2) -> VAE decode -> color fix. Above
+`tile_chunk` tiles the LQ feature map stays unsplit and each chunk's
+tiles are cut from it in the loop; the last chunk may be ragged (the JAX
+package pads it, and its padded tiles never reach the merge). Above
+`host_loop_tile_threshold` tiles a `checkpoint_dir` keeps each step's
+canvas, from which a re-run with the same inputs resumes. Under
+`config.use_tiled_vae` the factory's stages run the denoise encoder and
+the VAE over blended tiles, and the color fix streams by windows into a
+host canvas. Public layouts follow the JAX package: a [H, W, 3] uint8 or
+float input, NHWC latents in and out; the models run NCHW inside. `seed`
+drives torch.Generators.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import hashlib
+import json
+import os
+import warnings
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +48,75 @@ def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float):
     return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
 
 
+def _canvas_ckpt_load(ckpt_dir: str, meta: dict):
+    """`(next_step, latents)` from the newest per-step canvas under
+    `ckpt_dir` whose run metadata matches `meta`, else None. The canvas
+    after the last step resumes straight into decode: a crash between the
+    last step and the decode does not denoise again."""
+    meta_path = os.path.join(ckpt_dir, "canvas_meta.json")
+    if not os.path.exists(meta_path):
+        return None
+    with open(meta_path) as f:
+        if json.load(f) != meta:
+            return None
+    steps = [int(name[len("canvas_step"):-len(".npy")])
+             for name in os.listdir(ckpt_dir)
+             if name.startswith("canvas_step") and name.endswith(".npy")]
+    if not steps:
+        return None
+    best = max(steps)
+    return best + 1, np.load(os.path.join(ckpt_dir, f"canvas_step{best:04d}.npy"))
+
+
+def _canvas_ckpt_save(ckpt_dir: str, meta: dict, step: int,
+                      latents: np.ndarray) -> None:
+    """Write the canvas after `step` (NHWC fp32, as the JAX package writes
+    it) and the run metadata, each by an atomic rename. A new metadata
+    drops the canvases of the previous run first."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    meta_path = os.path.join(ckpt_dir, "canvas_meta.json")
+    stale = True
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            stale = json.load(f) != meta
+    if stale:
+        for name in os.listdir(ckpt_dir):
+            if name.startswith("canvas_step") and name.endswith(".npy"):
+                os.remove(os.path.join(ckpt_dir, name))
+        with open(meta_path + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(meta_path + ".tmp", meta_path)
+    path = os.path.join(ckpt_dir, f"canvas_step{step:04d}.npy")
+    np.save(path + ".tmp.npy", latents)
+    os.replace(path + ".tmp.npy", path)
+
+
+def _host_bytes(t: torch.Tensor) -> bytes:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _content_hash(*tensors) -> str:
+    """Hash of tensor shapes, dtypes and contents: a resume must match a
+    run with the same conditioning and the same initial latents."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(str((tuple(t.shape), str(t.dtype))).encode())
+        h.update(_host_bytes(t))
+    return h.hexdigest()[:16]
+
+
+def _params_fingerprint(module: torch.nn.Module) -> str:
+    """Weight identity without hashing gigabytes: the state dict's names,
+    shapes and dtypes plus the bytes of its smallest tensor."""
+    sd = module.state_dict()
+    h = hashlib.sha256()
+    h.update(str([(k, tuple(v.shape), str(v.dtype))
+                  for k, v in sd.items()]).encode())
+    if sd:
+        h.update(_host_bytes(min(sd.values(), key=lambda v: v.numel())))
+    return h.hexdigest()[:16]
+
+
 def _tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
@@ -61,6 +139,12 @@ class FaithDiffPipeline:
         default_factory=DDPMScheduler)
     config: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
     vae_scaling_factor: float = 0.13025
+    latents_mean: Optional[Tuple[float, ...]] = None
+    latents_std: Optional[Tuple[float, ...]] = None
+    # tiles per UNet call; above it the LQ feature map stays unsplit
+    tile_chunk: Optional[int] = None
+    # above this tile count a checkpoint_dir keeps every step's canvas
+    host_loop_tile_threshold: int = 16
     # image [1, 3, H, W] -> LQ features / VAE moments; latents -> image
     denoise_encoder_apply: Optional[Callable] = None
     vae_encode_moments: Optional[Callable] = None
@@ -81,6 +165,16 @@ class FaithDiffPipeline:
     @property
     def dtype(self) -> torch.dtype:
         return self.unet.conv_in.weight.dtype
+
+    def _denormalize_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """NCHW latents -> the VAE's latent space."""
+        if self.latents_mean is not None and self.latents_std is not None:
+            mean = torch.tensor(self.latents_mean, dtype=torch.float32,
+                                device=latents.device).reshape(1, -1, 1, 1)
+            std = torch.tensor(self.latents_std, dtype=torch.float32,
+                               device=latents.device).reshape(1, -1, 1, 1)
+            return latents * std / self.vae_scaling_factor + mean
+        return latents / self.vae_scaling_factor
 
     @staticmethod
     def _prep_input(src: torch.Tensor) -> torch.Tensor:
@@ -107,6 +201,7 @@ class FaithDiffPipeline:
         latents=None,                          # [1, H/8, W/8, 4] NHWC
         output_type: str = "np",   # "np" float [0,1] | "uint8" | "latent"
         noise_source: str = "torch",
+        checkpoint_dir: Optional[str] = None,
     ):
         cfg = self.config
         steps = num_inference_steps or cfg.num_inference_steps
@@ -134,9 +229,12 @@ class FaithDiffPipeline:
         src = torch.as_tensor(np.asarray(lr_image), device=dev)   # one upload
         image = self._prep_input(src)
 
-        # LQ features of the whole image, then cut into the tile grid
+        # LQ features of the whole image; cut into the tile grid up front
+        # only when every tile runs in one UNet call
+        n = layout.num_tiles
+        chunk = n if self.tile_chunk is None else min(self.tile_chunk, n)
         image_latents = self.denoise_encoder_apply(image)
-        lq_tiles = split_tiles(image_latents, layout)
+        lq_tiles = split_tiles(image_latents, layout) if chunk == n else None
 
         # initial latents: NCHW noise from a CPU generator (bit-identical to
         # diffusers' randn_tensor); the same generator then draws the VAE
@@ -167,25 +265,66 @@ class FaithDiffPipeline:
         pooled = torch.cat([neg_pooled, pooled_prompt_embeds], dim=0)
 
         # per-tile add_time_ids: [orig (h, w), latent offset (i, j), target]
-        n = layout.num_tiles
         pos = tile_position_ids(layout).astype(np.float32)
         size = np.tile(np.asarray((h, w), np.float32), (n, 1))
         time_ids = torch.from_numpy(
             np.concatenate([size, pos, size], axis=1)).to(dev)
 
-        # one UNet call per step over every tile's CFG pair, tile-major
-        ctx = embeds.repeat(n, 1, 1)
-        pooled_c = pooled.repeat(n, 1)
-        time_ids_c = time_ids.repeat_interleave(2, dim=0)
-        lq_c = lq_tiles.repeat_interleave(2, dim=0)
+        # per-call constants at chunk size; a ragged last chunk takes a prefix
+        ctx_c = embeds.repeat(chunk, 1, 1)
+        pooled_c = pooled.repeat(chunk, 1)
         weights = torch.from_numpy(gaussian_tile_weights(*layout.kernel)).to(dev)
-        for i in range(steps):
-            tiles = split_tiles(latents, layout)
+
+        def unet_chunk(tiles, i, lo):
+            """One UNet call over tiles [lo, lo + chunk): each tile's CFG
+            pair adjacent, tile-major."""
+            hi = min(lo + chunk, n)
+            if lq_tiles is None:
+                lq = split_tiles(image_latents, dataclasses.replace(
+                    layout, offsets=layout.offsets[lo:hi]))
+            else:
+                lq = lq_tiles[lo:hi]
+            rows = 2 * (hi - lo)
             model_in = self.scheduler.scale_model_input(
-                state, tiles.repeat_interleave(2, dim=0), i)
-            eps = self.unet(model_in, state.timesteps[i], ctx, pooled_c,
-                            time_ids_c, lq_c, add_sample=add_sample,
-                            fusion_group_size=2)
+                state, tiles[lo:hi].repeat_interleave(2, dim=0), i)
+            return self.unet(model_in, state.timesteps[i], ctx_c[:rows],
+                             pooled_c[:rows],
+                             time_ids[lo:hi].repeat_interleave(2, dim=0),
+                             lq.repeat_interleave(2, dim=0),
+                             add_sample=add_sample, fusion_group_size=2)
+
+        start = 0
+        ck_meta = None
+        if checkpoint_dir is not None and n > self.host_loop_tile_threshold:
+            ck_meta = {
+                "seed": int(seed), "h": int(h), "w": int(w),
+                "steps": int(steps), "overlap": float(overlap),
+                "guidance": float(guidance_scale),
+                "rescale": float(guidance_rescale),
+                "noise_source": noise_source, "start_point": start_point,
+                "add_sample": bool(add_sample),
+                # a new caption, caller latents or weights start afresh
+                "cond_hash": _content_hash(embeds, pooled),
+                "init_latents_hash": _content_hash(
+                    latents.permute(0, 2, 3, 1).contiguous()),
+                "params_fp": _params_fingerprint(self.unet),
+            }
+            resumed = _canvas_ckpt_load(checkpoint_dir, ck_meta)
+            if resumed is not None:
+                start, canvas = resumed
+                latents = torch.from_numpy(canvas).to(dev).permute(
+                    0, 3, 1, 2).contiguous()
+        elif checkpoint_dir is not None:
+            warnings.warn(
+                f"checkpoint_dir is ignored at {n} tiles <= "
+                f"host_loop_tile_threshold={self.host_loop_tile_threshold}: "
+                "as in the JAX package, only runs above it keep per-step "
+                "canvases to resume from.", stacklevel=2)
+
+        for i in range(start, steps):
+            tiles = split_tiles(latents, layout)
+            eps = torch.cat([unet_chunk(tiles, i, lo)
+                             for lo in range(0, n, chunk)])
             eps = eps.reshape(n, 2, *eps.shape[1:])
             eps_uncond, eps_text = eps[:, 0], eps[:, 1]
             eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
@@ -193,6 +332,10 @@ class FaithDiffPipeline:
                 eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
             tiles = self.scheduler.step(state, eps, i, tiles)
             latents = merge_tiles(tiles, layout, weights)
+            if ck_meta is not None:
+                _canvas_ckpt_save(checkpoint_dir, ck_meta, i, latents.permute(
+                    0, 2, 3, 1).float().cpu().numpy())
+        del lq_tiles, image_latents
 
         if output_type == "latent":
             return latents.permute(0, 2, 3, 1).contiguous()
@@ -214,7 +357,7 @@ class FaithDiffPipeline:
     def _decode(self, latents: torch.Tensor, src: torch.Tensor,
                 color_fix: Optional[str], to_uint8: bool) -> np.ndarray:
         color_fix = self.config.color_fix if color_fix is None else color_fix
-        image_out = self.vae_decode(latents / self.vae_scaling_factor)
+        image_out = self.vae_decode(self._denormalize_latents(latents))
         if self.config.use_tiled_vae:
             # the fix streams window by window into a host canvas: the
             # one-shot fix holds ~10 full-resolution buffers on the device

@@ -11,6 +11,14 @@ packed `attn.in_proj_weight`, `spatial_ch_projs`), `to_out` -> `to_out.0`,
 conv kernels HWIO -> OIHW, dense kernels transposed, norm `scale` ->
 `weight`.
 
+`clip_text_state_dict_from_flax` gives the SDXL text towers' transformers
+`CLIPTextModel` / `CLIPTextModelWithProjection` keys, the inverse of
+`faithdiff_tpu/utils/convert.py`'s `convert_clip_text`
+(`position_embedding_raw` / `position_embedding` -> the position table,
+`token_embedding.embedding`, layers under `text_model.encoder`); SDXL's own
+tower files need only `text_model.embeddings.position_ids` dropped
+(`clip_text_state_dict_from_reference`).
+
 The captioner's carry functions (`llama_state_dict_from_flax`,
 `clip_vision_state_dict_from_flax`, `projector_state_dict_from_flax`,
 `mpt_state_dict_from_flax`) give transformers / LLaVA checkpoint keys, the
@@ -298,3 +306,40 @@ def mpt_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         return "transformer." + ".".join(parts)
 
     return _carry(params, rename)
+
+
+TEXT_TOWERS = ("text_encoder", "text_encoder_2")
+
+
+def clip_text_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `CLIPTextTower` params -> the port's `CLIPTextTower` state dict
+    in transformers names (`text_model.embeddings.*`,
+    `text_model.encoder.layers.{i}.*`, `text_model.final_layer_norm.*`,
+    `text_projection.weight`); `SDXLTextEncoder` params (`text_encoder`,
+    `text_encoder_2`) -> both, each under its tower's name."""
+    params = dict(_unwrap(params))
+    if set(params) == set(TEXT_TOWERS):
+        return {f"{tower}.{k}": v for tower in TEXT_TOWERS
+                for k, v in clip_text_state_dict_from_flax(params[tower]).items()}
+    pos = np.asarray(params.pop("position_embedding"), np.float32)
+    out = {"text_model.embeddings.position_embedding.weight":
+           torch.from_numpy(np.ascontiguousarray(pos))}
+
+    def rename(path):
+        if path[0] == "token_embedding":
+            return "text_model.embeddings.token_embedding"
+        if path[0] in ("final_layer_norm", "text_projection"):
+            return ("text_model." if path[0] == "final_layer_norm" else "") + path[0]
+        return ".".join(["text_model.encoder", _index(path[0], "layers")]
+                        + list(path[1:]))
+
+    out.update(_carry(params, rename))
+    return out
+
+
+def clip_text_state_dict_from_reference(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A transformers text tower's state dict (SDXL's `text_encoder*/`) ->
+    the port's `CLIPTextTower` keys: the same names without the
+    `position_ids` buffer."""
+    return {k: v for k, v in sd.items()
+            if k != "text_model.embeddings.position_ids"}

@@ -10,11 +10,13 @@ as safetensors files, one directory a model:
       --vae_dir /path/sdxl-vae-fp16-fix \\
       --out_dir ckpts/
 
-writes ckpts/{unet,vae,denoise_encoder}/model.safetensors, which
-`python -m faithdiff_tpu_torch.cli restore --checkpoint_dir ckpts/` reads.
-Tensors keep the dtype they were read in (the pipeline casts them as it
-loads them). The SDXL text towers (`text_encoder*/`) are not converted:
-the port has no text-encoder model yet.
+writes ckpts/{unet,vae,denoise_encoder}/model.safetensors and, from the
+SDXL dir's `text_encoder/` and `text_encoder_2/`,
+ckpts/text_encoders/model.safetensors (both towers, each under its
+directory's name: the state dict of `models.clip_text.SDXLTextEncoder`),
+which `python -m faithdiff_tpu_torch.cli restore --checkpoint_dir ckpts/`
+reads. Tensors keep the dtype they were read in (the models cast them as
+they load them).
 
   python -m faithdiff_tpu_torch.utils.convert_cli export \\
       --checkpoint_dir ckpts/ --out FaithDiff.bin
@@ -32,12 +34,12 @@ from typing import Dict
 
 import torch
 
-from .convert import (denoise_encoder_state_dict_from_reference,
+from .convert import (TEXT_TOWERS, clip_text_state_dict_from_reference,
+                      denoise_encoder_state_dict_from_reference,
                       export_faithdiff_bin, load_torch_bin,
                       unet_state_dict_from_reference)
 from .safetensors import load_file, save_file
 
-TEXT_TOWERS = ("text_encoder", "text_encoder_2")
 MODEL_FILE = "model.safetensors"
 
 
@@ -87,9 +89,14 @@ def main(argv=None) -> int:
 
     towers = [t for t in TEXT_TOWERS
               if os.path.isdir(os.path.join(args.sdxl_dir, t))]
+    if towers and len(towers) != len(TEXT_TOWERS):
+        raise FileNotFoundError(f"{args.sdxl_dir}: has {towers[0]}/ but not "
+                                "both text towers")
     if towers:
-        print(f"convert: left {', '.join(towers)} unconverted (the text "
-              "towers are ROADMAP §1.2); no text_encoders/ written")
+        _save({f"{t}.{k}": v for t in TEXT_TOWERS for k, v in
+               clip_text_state_dict_from_reference(
+                   _load_any(args.sdxl_dir, t)).items()},
+              args.out_dir, "text_encoders")
     print(f"converted checkpoints -> {args.out_dir}")
     return 0
 

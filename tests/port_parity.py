@@ -36,3 +36,35 @@ def nchw(x):
 def nhwc(t):
     """NCHW torch -> NHWC numpy."""
     return t.detach().numpy().transpose(0, 2, 3, 1)
+
+
+def tiny_restore_params():
+    """Flax params of the JAX package's tiny UNet, VAE and denoise encoder,
+    made with numpy (seeds 0, 1, 2)."""
+    import jax.numpy as jnp
+
+    from faithdiff_tpu.config import (tiny_denoise_encoder_config,
+                                      tiny_unet_config, tiny_vae_config)
+    from faithdiff_tpu.models.unet import UNet2DConditionModel
+    from faithdiff_tpu.models.vae import AutoencoderKL, DenoiseEncoder
+
+    z = jnp.zeros
+    unet = random_params(UNet2DConditionModel(config=tiny_unet_config()), 0,
+                         z((2, 8, 8, 4)), z((2,)), z((2, 77, 64)), z((2, 64)),
+                         z((2, 6)), z((2, 8, 8, 64)))
+    vae = random_params(AutoencoderKL(config=tiny_vae_config()), 1,
+                        z((1, 64, 64, 3)))
+    de = random_params(DenoiseEncoder(config=tiny_denoise_encoder_config()), 2,
+                       z((1, 64, 64, 3)))
+    return unet, vae, de
+
+
+def jax_posterior_noise(seed, lh, lw):
+    """The VAE posterior noise of the JAX pipeline's `seed` (its key
+    split(PRNGKey(seed), 3)[2]) as NCHW torch, for the port's
+    `models.vae.posterior_noise`."""
+    import jax.numpy as jnp
+
+    key = jax.random.split(jax.random.PRNGKey(seed), 3)[2]
+    noise = np.asarray(jax.random.normal(key, (1, lh, lw, 4), jnp.float32))
+    return torch.from_numpy(noise.transpose(0, 3, 1, 2).copy())

@@ -6,10 +6,12 @@ Imports no JAX, so the file also runs on a machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -567,3 +569,65 @@ def test_nf4_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
     torch.cuda.synchronize()
     assert _build.launches["nf4_matmul"] == 1
     assert out.shape == (2, 3, 96) and out.dtype == torch.bfloat16
+
+
+def test_chunked_restore_matches_unchunked(cuda):
+    """A tiny restore of 5 tiles (64x192 px at tile_size 64) on the card,
+    fp32 (GroupNorm's kernel at fp32; TF32 off so that both runs sum in
+    fp32), in chunks of 2 tiles against one UNet call a step: latents
+    within 2^-8 * max|ref|, no call above 4 rows, the kernel launched."""
+    from faithdiff_tpu_torch.config import PipelineConfig
+    from faithdiff_tpu_torch.pipelines import build_tiny_pipeline
+
+    pipe = build_tiny_pipeline(
+        pipeline_config=PipelineConfig(tile_size=64, num_inference_steps=3),
+        device=cuda, seed=1)
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 256, (64, 192, 3), dtype=np.uint8)
+    pe = rng.standard_normal((1, 77, 64)).astype(np.float32)
+    pooled = rng.standard_normal((1, 64)).astype(np.float32)
+    rows = []
+    hook = pipe.unet.register_forward_pre_hook(lambda m, a: rows.append(a[0].shape[0]))
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = pipe(img, pe, pooled, seed=3, output_type="latent")
+        pipe.tile_chunk = 2
+        rows.clear()
+        _build.launches.clear()
+        got = pipe(img, pe, pooled, seed=3, output_type="latent")
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+        hook.remove()
+    assert rows == [4, 4, 2] * 3
+    assert sum(v for k, v in _build.launches.items() if k.startswith("group_norm")) > 0
+    err = float((got - ref).abs().max())
+    assert err <= 2 ** -8 * float(ref.abs().max()), err
+
+
+def test_text_towers_bf16_on_the_card_match_fp32_on_the_cpu(cuda):
+    """Both tiny towers at SDXL's vocabulary (49408, EOS 49407), bf16 on
+    the card against the same weights in fp32 on the CPU, within
+    5e-2 * (1 + |ref|)."""
+    from faithdiff_tpu_torch.config import tiny_text_encoder_configs
+    from faithdiff_tpu_torch.models.clip_text import SDXLTextEncoder
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+
+    c1, c2 = (dataclasses.replace(c, vocab_size=49408)
+              for c in tiny_text_encoder_configs())
+    with cuda:
+        enc = SDXLTextEncoder(c1, c2, dtype=torch.bfloat16).eval()
+    random_init_(enc, torch.Generator(device=cuda).manual_seed(4))
+    ref_enc = SDXLTextEncoder(c1, c2).eval()
+    ref_enc.load_state_dict({k: v.float().cpu() for k, v in enc.state_dict().items()})
+    ids = torch.full((3, 77), 49407)
+    ids[:, 0] = 49406
+    ids[0, 1:6] = torch.arange(100, 105)
+    ids[2, 1:76] = torch.arange(1000, 1075)
+    with torch.no_grad():
+        got, want = enc(ids, ids), ref_enc(ids, ids)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.bfloat16
+        err = (g.float().cpu() - w).abs()
+        assert bool((err <= 5e-2 * (1 + w.abs())).all()), float(err.max())

@@ -1,6 +1,6 @@
 """The PyTorch port imports nothing of JAX, flax or the JAX package, and
-none of PIL, transformers, safetensors, orbax or OpenCV (the card's
-machine has none of them): every module of `faithdiff_tpu_torch` and
+none of PIL, transformers, regex, ftfy, safetensors, orbax or OpenCV (the
+card's machine has none of them): every module of `faithdiff_tpu_torch` and
 `chip_smoke.py`, read as source, and the package as imported in a fresh
 interpreter."""
 import ast
@@ -11,12 +11,12 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "faithdiff_tpu", "PIL",
-             "transformers", "safetensors", "orbax", "cv2")
+             "transformers", "regex", "ftfy", "safetensors", "orbax", "cv2")
 
 
 def _port_sources():
     files = sorted((ROOT / "faithdiff_tpu_torch").rglob("*.py"))
-    assert len(files) >= 44, files
+    assert len(files) >= 48, files
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -54,7 +54,10 @@ def test_importing_the_port_loads_no_jax():
         "faithdiff_tpu_torch.ops.attention_variants, "
         "faithdiff_tpu_torch.scripts.bench_attention_variants, "
         "faithdiff_tpu_torch.cli, faithdiff_tpu_torch.utils.convert_cli, "
-        "faithdiff_tpu_torch.utils.png, faithdiff_tpu_torch.utils.image\n"
+        "faithdiff_tpu_torch.utils.png, faithdiff_tpu_torch.utils.image, "
+        "faithdiff_tpu_torch.models.clip_text, "
+        "faithdiff_tpu_torch.models.tokenizer, "
+        "faithdiff_tpu_torch.training.text_embeds\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
