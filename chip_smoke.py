@@ -104,6 +104,23 @@
    decode forward;
    then profiles the prefill and the last decode step as step 5 profiles
    the UNet.
+8b. `caption_int8`: the same caption with `quant="int8"` (the caption
+   CLI's default, plain torch): the same checks, no counted launch, and a
+   profile of its last decode step. `cli_caption`: seeded LLaVA-1.5-13B
+   weights at full width and 8 of its 40 layers (a cut for disk space:
+   ~6.6 GB fp16) written as the reference ships them (two `.bin` shards
+   and their index, `model.mm_projector.*`, a 32000-piece
+   `tokenizer.model` and its JSON files, a whole CLIPModel ViT-L/14-336
+   `.bin`), converted by `convert_cli --llava --clip_vision`, then
+   `cli.main(["caption", ...])` on two seeded PNGs: buffers equal to the
+   int8 quantisation of the written weights, each JSON caption equal to
+   the in-memory agent's, a second call skipping both images,
+   `--use_bsrnet` the same JSON; then `from_checkpoint(load_4bit=True)`:
+   the nf4 buffers, one caption, 56 NF4 launches a forward on the right
+   routes. The files are deleted afterwards, also when the phase fails.
+   `bsrnet`: the full-width RRDBNet (x4) in bf16, `deg_remove` of a
+   1024x1536 image (6 tiles -> 4096x6144), a 64x64 crop against fp32 on
+   the CPU.
 9. Prints the card line, a JSON line listing every ported kernel, then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
@@ -194,6 +211,14 @@ NF4_GEMV_MAX_M = 8                       # M of the decode route: nf4_gemv, abov
 NF4_REPORT = (1, 5120, 13824)            # (M, in, out) of the kernels entry
 CAPTION_IMAGES = [(768, 1024), (1024, 768)]
 CAPTION_NEW_TOKENS = 512
+# cli_caption's LLaMA depth: 8 of the 13B's 40 layers at full width keep
+# the reference-layout files at ~6.6 GB fp16 (and as much converted)
+CLI_CAPTION_LAYERS = 8
+# bsrnet: a 1024x1536 image in 512 px tiles (2 x 3) -> 4096x6144; a
+# 64x64 crop through the 23 RRDB blocks (345 convolutions) in bf16 on the
+# card against fp32 on the CPU
+BSRNET_PIXELS, BSRNET_TILES = (1024, 1536), 6
+BSRNET_TOL, BSRNET_MEAN_TOL = 5e-2, 2e-2        # x max|ref|, x mean|ref|
 NF4_PER_FORWARD = 7 * 40                 # projections x layers of the 13B LLaMA
 PREFILL_LAYERS, PREFILL_TOKENS = 2, 1024
 # the packed and the default path run the self-attentions through the same
@@ -1510,7 +1535,7 @@ def run_cli_restore_prompt(torch, pipe, root: str, ckpt: str) -> None:
     # the in-memory side: the converted towers, the port's tokenizer, the
     # caption as the CLI trims it
     (cli_enc,) = seen_towers
-    enc = build(False, "cuda", cli._load_dir(os.path.join(ckpt, "text_encoders")))
+    enc = build(False, "cuda", cli.load_dir(os.path.join(ckpt, "text_encoders")))
     mine, theirs = enc.state_dict(), cli_enc.state_dict()
     if sorted(mine) != sorted(theirs) or not all(torch.equal(mine[k], theirs[k])
                                                 for k in mine):
@@ -1836,9 +1861,12 @@ def run_bench(torch):
     return counts
 
 
-def run_caption(torch):
+def run_caption(torch, quant: str = "nf4"):
     """The captioner's main path: build_caption_agent() at full width (13B
-    LLaMA nf4, ViT-L/14-336), one caption_batch of two images."""
+    LLaMA, `quant` "nf4" or "int8", ViT-L/14-336), one caption_batch of two
+    images. nf4: 280 NF4 launches a forward, on the prefill route for the
+    prefill and the decode route after it; int8 (plain torch, as XLA ran
+    the JAX package's int8 matmul): no counted launch at all."""
     import numpy as np
 
     from faithdiff_tpu_torch.captioner import (CLIPVisionConfig, LlamaConfig,
@@ -1848,12 +1876,13 @@ def run_caption(torch):
     tok = WordTokenizer()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    agent = build_caption_agent(tok, LlamaConfig(quant="nf4"), CLIPVisionConfig(),
+    agent = build_caption_agent(tok, LlamaConfig(quant=quant), CLIPVisionConfig(),
                                 dtype=torch.bfloat16, device="cuda", seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     weights_gib = torch.cuda.memory_allocated() / 2 ** 30
-    print(f"caption: built LLaVA-1.5-13B nf4 + ViT-L/14-336 in {build_s:.1f} s "
+    label = "caption" if quant == "nf4" else f"caption_{quant}"
+    print(f"{label}: built LLaVA-1.5-13B {quant} + ViT-L/14-336 in {build_s:.1f} s "
           f"(init + quantise on the card), {weights_gib:.2f} GiB", flush=True)
     if (agent.temperature, agent.top_p, agent.max_new_tokens) != (0.2, 0.7, 512):
         fail("caption agent defaults changed")
@@ -1918,15 +1947,15 @@ def run_caption(torch):
             fail(f"caption tokens out of range or empty: {ids[:10]}")
     if n_fwd < 2 or n_fwd > CAPTION_NEW_TOKENS:
         fail(f"{n_fwd} forward passes")
-    if counts != {"nf4_matmul": NF4_PER_FORWARD * n_fwd, "nf4_gemm": NF4_PER_FORWARD,
-                  "nf4_gemv": NF4_PER_FORWARD * (n_fwd - 1)}:
-        fail(f"launch counts {counts}, expected nf4_matmul = {NF4_PER_FORWARD} x {n_fwd}, "
-             f"nf4_gemm {NF4_PER_FORWARD} (prefill), the rest nf4_gemv")
-    prefill_routes = {"nf4_matmul": NF4_PER_FORWARD, "nf4_gemm": NF4_PER_FORWARD}
-    decode_routes = {"nf4_matmul": NF4_PER_FORWARD, "nf4_gemv": NF4_PER_FORWARD}
-    if calls[0][4] != prefill_routes or any(c[4] != decode_routes for c in calls[1:]):
-        fail(f"per-forward launches: prefill {calls[0][4]}, decode "
-             f"{[c[4] for c in calls[1:] if c[4] != decode_routes][:3]}")
+    if quant == "nf4":
+        if counts != {"nf4_matmul": NF4_PER_FORWARD * n_fwd, "nf4_gemm": NF4_PER_FORWARD,
+                      "nf4_gemv": NF4_PER_FORWARD * (n_fwd - 1)}:
+            fail(f"launch counts {counts}, expected nf4_matmul = {NF4_PER_FORWARD} x "
+                 f"{n_fwd}, nf4_gemm {NF4_PER_FORWARD} (prefill), the rest nf4_gemv")
+        check_forward_routes(calls, NF4_PER_FORWARD, label)
+    elif counts:
+        fail(f"{label}: launch counts {counts}, expected none (no NF4 projection; "
+             f"the prompt is under the flash gate)")
     prefill_ms = calls[0][0].elapsed_time(calls[0][1])
     decode_ms = calls[0][1].elapsed_time(end)
     n_decode = n_fwd - 1
@@ -1940,14 +1969,411 @@ def run_caption(torch):
         lengths=[len(ids) for ids in tok.decoded],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=counts)
-    print("caption", json.dumps(result), flush=True)
+    print(label, json.dumps(result), flush=True)
     for c in captions:
         print(f"  caption ({len(c)} chars): {c[:100]!r}", flush=True)
     # the prefill and the last decode step once more (their cache slots are
     # rewritten in place with the same values)
-    profile_call(torch, "profile_prefill", agent.llama, *first)
-    profile_call(torch, "profile_decode", agent.llama, *last)
+    if quant == "nf4":
+        profile_call(torch, "profile_prefill", agent.llama, *first)
+        profile_call(torch, "profile_decode", agent.llama, *last)
+    else:
+        profile_call(torch, f"profile_decode_{quant}", agent.llama, *last)
     return counts
+
+
+def check_forward_routes(calls, per_forward: int, label: str) -> None:
+    """Each forward's NF4 launches (the last item of each `calls` row, a
+    dict by counter): `per_forward` on the prefill route for the first
+    forward and on the decode route for every later one."""
+    prefill_routes = {"nf4_matmul": per_forward, "nf4_gemm": per_forward}
+    decode_routes = {"nf4_matmul": per_forward, "nf4_gemv": per_forward}
+    if calls[0][-1] != prefill_routes or any(c[-1] != decode_routes for c in calls[1:]):
+        fail(f"{label}: per-forward launches: prefill {calls[0][-1]}, decode "
+             f"{[c[-1] for c in calls[1:] if c[-1] != decode_routes][:3]}")
+
+
+def llama_vocab_pieces(size: int = 32000):
+    """A synthetic LLaMA-sized SentencePiece vocabulary, (piece, score,
+    type) in id order: `<unk>` / `<s>` / `</s>` at 0 / 1 / 2, the 256 byte
+    pieces, then normal pieces by falling score: the words of the caption
+    prompt with `▁` and every prefix of them (so BPE reaches each), single
+    characters, then two- and three-letter pieces with and without `▁`."""
+    import itertools
+
+    from faithdiff_tpu_torch.captioner.agent import (DEFAULT_QUESTION,
+                                                     build_vicuna_prompt)
+    from faithdiff_tpu_torch.captioner.llama_tokenizer import (BYTE, CONTROL,
+                                                               NORMAL, UNKNOWN)
+
+    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL), ("</s>", 0.0, CONTROL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
+    normal = {}
+    for word in re.findall(r"\w+|[^\w\s]", " ".join(build_vicuna_prompt(DEFAULT_QUESTION))):
+        for w in ("▁" + word, word):
+            for k in range(2, len(w) + 1):
+                normal.setdefault(w[:k], None)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    for c in "▁" + letters + letters.upper() + "0123456789.,:;!?'\"-()/&":
+        normal.setdefault(c, None)
+    for n in (2, 3):
+        for combo in itertools.product(letters, repeat=n):
+            for w in ("".join(combo), "▁" + "".join(combo)):
+                normal.setdefault(w, None)
+    names = list(normal)[:size - len(pieces)]
+    return pieces + [(w, -float(i), NORMAL) for i, w in enumerate(names)]
+
+
+def write_llava_reference(torch, root: str, layers: int) -> dict:
+    """Seeded weights of LLaVA-1.5-13B at full width and `layers` LLaMA
+    layers, in the reference's released layout under `root`:
+    `llava-v1.5-13b/pytorch_model-0000{1,2}-of-00002.bin` (fp16; the
+    embedding and the layers, with transformers' rotary tables, in the
+    first, the final norm, `lm_head` and `model.mm_projector.*` in the
+    second) with `pytorch_model.bin.index.json`, a 32000-piece
+    `tokenizer.model` with `tokenizer_config.json` and
+    `special_tokens_map.json`, and `clip-vit-large-patch14-336/
+    pytorch_model.bin` (a whole CLIPModel, fp16: the ViT-L/14-336 vision
+    tower, a seeded text tower, the projections, `logit_scale`).
+    Returns {"llama", "projector", "vision": the written state dicts on the
+    card, "sizes": {file: bytes}}."""
+    import dataclasses
+
+    from faithdiff_tpu_torch.captioner.clip_vision import (CLIPVisionConfig,
+                                                           CLIPVisionTower,
+                                                           VisionProjector)
+    from faithdiff_tpu_torch.captioner.llama import LlamaConfig, LlamaForCausalLM
+    from faithdiff_tpu_torch.captioner.llama_tokenizer import save_sentencepiece_model
+    from faithdiff_tpu_torch.config import CLIPTextConfig
+    from faithdiff_tpu_torch.models.clip_text import CLIPTextTower
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+
+    cfg = dataclasses.replace(LlamaConfig.llava_13b(), num_hidden_layers=layers)
+    vcfg = CLIPVisionConfig()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    with torch.device("cuda"):
+        llama = LlamaForCausalLM(cfg, dtype=torch.float16)
+        projector = VisionProjector(cfg.hidden_size, vcfg.hidden_size, dtype=torch.float16)
+        vision = CLIPVisionTower(vcfg, dtype=torch.float16)
+        text = CLIPTextTower(dataclasses.replace(CLIPTextConfig(), projection_dim=768),
+                             dtype=torch.float16)
+    written = {}
+    for name, model in (("llama", llama), ("projector", projector), ("vision", vision),
+                        ("text", text)):
+        random_init_(model, gen)
+        written[name] = {k: v.half() for k, v in model.state_dict().items()}
+        del model
+    del llama, projector, vision, text
+    llava = os.path.join(root, "llava-v1.5-13b")
+    os.makedirs(llava)
+    head = cfg.hidden_size // cfg.num_attention_heads
+    inv_freq = 1.0 / 10000 ** (torch.arange(0, head, 2, dtype=torch.float32) / head)
+    first = {k: v for k, v in written["llama"].items() if k.startswith("model.layers.")
+             or k == "model.embed_tokens.weight"}
+    first.update({f"model.layers.{i}.self_attn.rotary_emb.inv_freq": inv_freq
+                  for i in range(layers)})
+    second = {k: v for k, v in written["llama"].items() if k not in first}
+    second.update({f"model.mm_projector.{k}": v for k, v in written["projector"].items()})
+    shards = {"pytorch_model-00001-of-00002.bin": first,
+              "pytorch_model-00002-of-00002.bin": second}
+    for name, sd in shards.items():
+        torch.save({k: v.cpu() for k, v in sd.items()}, os.path.join(llava, name))
+    with open(os.path.join(llava, "pytorch_model.bin.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": {k: name for name, sd in shards.items()
+                                                  for k in sd}}, f)
+    save_sentencepiece_model(os.path.join(llava, "tokenizer.model"), llama_vocab_pieces())
+    with open(os.path.join(llava, "tokenizer_config.json"), "w") as f:
+        json.dump({"add_bos_token": True, "add_eos_token": False, "legacy": False,
+                   "clean_up_tokenization_spaces": False, "model_max_length": 2048,
+                   "tokenizer_class": "LlamaTokenizer"}, f)
+    with open(os.path.join(llava, "special_tokens_map.json"), "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+                   "pad_token": "<unk>"}, f)
+    clip_dir = os.path.join(root, "clip-vit-large-patch14-336")
+    os.makedirs(clip_dir)
+    clip = dict(written["vision"])
+    clip.update(written.pop("text"))
+    d = vcfg.hidden_size
+    clip.update({
+        "vision_model.post_layernorm.weight": torch.ones(d, dtype=torch.float16),
+        "vision_model.post_layernorm.bias": torch.zeros(d, dtype=torch.float16),
+        "vision_model.embeddings.position_ids": torch.arange(vcfg.num_patches + 1)[None],
+        "text_model.embeddings.position_ids": torch.arange(77)[None],
+        "visual_projection.weight": torch.randn((768, d), generator=gen, device="cuda",
+                                                dtype=torch.float16) * d ** -0.5,
+        "logit_scale": torch.tensor(4.6052)})
+    torch.save({k: v.cpu() for k, v in clip.items()},
+               os.path.join(clip_dir, "pytorch_model.bin"))
+    sizes = {os.path.relpath(os.path.join(dp, f), root):
+             os.path.getsize(os.path.join(dp, f))
+             for dp, _, files in os.walk(root) for f in files}
+    return dict(written, sizes=sizes)
+
+
+class ForwardWatch:
+    """Forward hooks on a captioner's LLaMA: each forward's rows (sequence
+    length, batch) and the counted launches it made."""
+
+    def __init__(self, llama):
+        from faithdiff_tpu_torch.ops import _build
+
+        self.calls, self._build = [], _build
+        self.handles = [llama.register_forward_pre_hook(self._pre),
+                        llama.register_forward_hook(self._post)]
+
+    def _pre(self, module, args):
+        self.calls.append([args[0].shape[1], args[0].shape[0],
+                           dict(self._build.launches)])
+
+    def _post(self, module, args, out):
+        before = self.calls[-1][-1]
+        self.calls[-1][-1] = {k: v - before.get(k, 0)
+                              for k, v in self._build.launches.items()
+                              if v != before.get(k, 0)}
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def run_cli_caption(torch, root: str) -> dict:
+    """`cli_caption`: seeded LLaVA-1.5-13B weights at full width and
+    CLI_CAPTION_LAYERS layers (a cut for disk space) written in the
+    reference's layout, converted by `convert_cli --llava --clip_vision`,
+    then `cli.main(["caption", ...])` on two seeded PNGs (int8, the CLI's
+    default): the buffers it loads equal `quantize_llama_params(..., "int8")`
+    of the written weights, each JSON caption equals the in-memory agent's
+    on the same weights and tokenizer (one image a call, seed 0), a second
+    call skips both images and `--use_bsrnet` gives the same JSON. Then
+    `from_checkpoint(load_4bit=True)` on the same directory: its buffers
+    equal the "nf4" quantisation, and its caption of one image launches the
+    NF4 kernel 7 x CLI_CAPTION_LAYERS times a forward, on the prefill route
+    for the prefill and the decode route after it."""
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.captioner import agent as agent_mod
+    from faithdiff_tpu_torch.captioner.clip_vision import (CLIPVisionConfig,
+                                                           CLIPVisionTower,
+                                                           VisionProjector)
+    from faithdiff_tpu_torch.captioner.llama import (LlamaConfig, LlamaForCausalLM,
+                                                     quantize_llama_params)
+    from faithdiff_tpu_torch.captioner.llama_tokenizer import LlamaTokenizer
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils import convert_cli
+    from faithdiff_tpu_torch.utils.png import read_png, write_png
+
+    free_gb = shutil.disk_usage(os.path.dirname(root)).free / 1e9
+    print(f"cli_caption: {free_gb:.1f} GB free beside {root}; the reference files "
+          "take ~6.6 GB and the converted copy as much again", flush=True)
+    cfg = dataclasses.replace(LlamaConfig.llava_13b(), num_hidden_layers=CLI_CAPTION_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = write_llava_reference(torch, root, CLI_CAPTION_LAYERS)
+    t1 = time.perf_counter()
+    out_dir = os.path.join(root, "converted")
+    convert_cli.main(["--llava", os.path.join(root, "llava-v1.5-13b"),
+                      "--clip_vision", os.path.join(root, "clip-vit-large-patch14-336",
+                                                    "pytorch_model.bin"),
+                      "--out_dir", out_dir])
+    t2 = time.perf_counter()
+    cap_dir = os.path.join(out_dir, "captioner")
+
+    rng = np.random.default_rng(13)
+    img_dir = os.path.join(root, "in")
+    os.makedirs(img_dir)
+    names = [f"photo_{i}" for i in range(len(CAPTION_IMAGES))]
+    for name, hw in zip(names, CAPTION_IMAGES):
+        write_png(os.path.join(img_dir, f"{name}.png"),
+                  rng.integers(0, 256, hw + (3,), dtype=np.uint8))
+
+    load = agent_mod.CaptionAgent.from_checkpoint
+    loaded = []
+
+    def watched(ckpt_dir, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        agent = load(ckpt_dir, llama_config=cfg, **kw)
+        torch.cuda.synchronize()
+        loaded.append((agent, time.perf_counter() - t))
+        return agent
+
+    def caption_cli(save_dir, *extra):
+        out = io.StringIO()
+        agent_mod.CaptionAgent.from_checkpoint = staticmethod(watched)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["caption", "--img_dir", img_dir, "--save_dir", save_dir,
+                               "--captioner_dir", cap_dir, *extra])
+        finally:
+            agent_mod.CaptionAgent.from_checkpoint = staticmethod(load)
+        print(out.getvalue(), end="", flush=True)
+        if rc != 0:
+            fail(f"cli caption returned {rc}")
+        agent, load_s = loaded.pop()
+        captions = {}
+        for name in names:
+            path = os.path.join(save_dir, f"{name}.json")
+            with open(path) as f:
+                captions[name] = json.load(f)
+        return agent, load_s, out.getvalue(), captions
+
+    _build.launches.clear()
+    cli_agent, load_s, log, captions = caption_cli(os.path.join(root, "caps"))
+    caption_s = [float(x) for x in re.findall(r"caption_s=([0-9.]+)", log)]
+    if len(caption_s) != len(names) or _build.launches:
+        fail(f"cli_caption: {len(caption_s)} captions, launches {dict(_build.launches)}")
+
+    # the buffers the CLI loaded are the int8 quantisation of the written weights
+    def check_buffers(agent, mode):
+        want = quantize_llama_params(ref["llama"], mode)
+        got = agent.llama.state_dict()
+        if sorted(got) != sorted(want):
+            fail(f"cli_caption: {mode} keys differ: {sorted(set(got) ^ set(want))[:4]}")
+        bad = [k for k in want if not torch.equal(got[k], want[k].to(got[k].dtype))]
+        for name, module in (("projector", agent.projector), ("vision", agent.vision)):
+            sd = module.state_dict()
+            bad += [f"{name}.{k}" for k, v in ref[name].items()
+                    if not torch.equal(sd[k], v.to(sd[k].dtype))]
+        if bad:
+            fail(f"cli_caption: {len(bad)} {mode} buffers differ, e.g. {bad[:3]}")
+        return len(want)
+
+    n_int8 = check_buffers(cli_agent, "int8")
+    del cli_agent
+    # the in-memory agent on the same weights and tokenizer
+    with torch.device("cuda"):
+        llama = LlamaForCausalLM(dataclasses.replace(cfg, quant="int8"), dtype=torch.bfloat16)
+        vision = CLIPVisionTower(CLIPVisionConfig(), dtype=torch.bfloat16)
+        projector = VisionProjector(cfg.hidden_size, CLIPVisionConfig().hidden_size,
+                                    dtype=torch.bfloat16)
+    llama.load_state_dict(quantize_llama_params(ref["llama"], "int8"))
+    vision.load_state_dict(ref["vision"])
+    projector.load_state_dict(ref["projector"])
+    for m in (llama, vision, projector):
+        m.eval().requires_grad_(False)
+    agent = agent_mod.CaptionAgent(llama=llama, vision=vision, projector=projector,
+                                   tokenizer=LlamaTokenizer.from_pretrained(
+                                       os.path.join(root, "llava-v1.5-13b")))
+    in_memory_s = []
+    for name in names:
+        t = time.perf_counter()
+        want = agent.caption(read_png(os.path.join(img_dir, f"{name}.png")), seed=0)
+        in_memory_s.append(time.perf_counter() - t)
+        if captions[name] != {"caption": want}:
+            fail(f"cli_caption: {name}: the CLI wrote {captions[name]!r}, the in-memory "
+                 f"agent gave {want!r}")
+    del agent, llama, vision, projector
+    torch.cuda.empty_cache()
+
+    _, _, log, again = caption_cli(os.path.join(root, "caps"))
+    if log.count("skip ") != len(names) or again != captions:
+        fail(f"cli_caption: a second call did not skip both images: {log!r}")
+    _, _, log, bsr = caption_cli(os.path.join(root, "caps_bsrnet"), "--use_bsrnet")
+    if "--use_bsrnet is not applied" not in log or bsr != captions:
+        fail("cli_caption: --use_bsrnet changed the captions or gave no warning")
+    torch.cuda.empty_cache()
+
+    # the same directory at load_4bit: the NF4 kernel on both routes
+    t = time.perf_counter()
+    nf4 = agent_mod.CaptionAgent.from_checkpoint(cap_dir, load_4bit=True, llama_config=cfg)
+    torch.cuda.synchronize()
+    nf4_load_s = time.perf_counter() - t
+    n_nf4 = check_buffers(nf4, "nf4")
+    watch = ForwardWatch(nf4.llama)
+    _build.launches.clear()
+    t = time.perf_counter()
+    nf4_caption = nf4.caption(read_png(os.path.join(img_dir, f"{names[0]}.png")), seed=0)
+    torch.cuda.synchronize()
+    nf4_caption_s = time.perf_counter() - t
+    watch.remove()
+    per_forward = 7 * CLI_CAPTION_LAYERS
+    n_fwd = len(watch.calls)
+    nf4_launches = dict(_build.launches)
+    if nf4_launches != {"nf4_matmul": per_forward * n_fwd, "nf4_gemm": per_forward,
+                        "nf4_gemv": per_forward * (n_fwd - 1)}:
+        fail(f"cli_caption: nf4 launches {nf4_launches} over {n_fwd} forwards")
+    check_forward_routes(watch.calls, per_forward, "cli_caption nf4")
+    del nf4, watch
+    result = dict(
+        free_disk_gb=free_gb, layers=CLI_CAPTION_LAYERS, file_bytes=ref["sizes"],
+        write_weights_s=t1 - t0, convert_s=t2 - t1, load_s=load_s,
+        caption_s=caption_s, in_memory_caption_s=in_memory_s,
+        buffers_checked_int8=n_int8, identical_to_in_memory=True, second_call_skipped=True,
+        use_bsrnet_same=True, nf4_load_s=nf4_load_s, buffers_checked_nf4=n_nf4,
+        nf4_caption_s=nf4_caption_s, nf4_forwards=n_fwd,
+        nf4_launches_per_forward=per_forward, nf4_launches=nf4_launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        caption_chars=[len(c["caption"]) for c in captions.values()])
+    print("cli_caption", json.dumps(result), flush=True)
+    for name in names:
+        print(f"  {name}: {captions[name]['caption'][:100]!r}", flush=True)
+    print(f"  nf4 {names[0]}: {nf4_caption[:100]!r}", flush=True)
+    return result
+
+
+def check_bsrnet(torch) -> dict:
+    """`bsrnet`: the full-width RRDBNet (nf 64, nb 23, gc 32, x4) in bf16 on
+    the card, seeded; `deg_remove` of a BSRNET_PIXELS image in [0, 1]
+    (512 px tiles, 16 px halo): the output shape, finite values, the tile
+    count, and one 64x64 crop in bf16 on the card against fp32 on the CPU."""
+    import numpy as np
+
+    from faithdiff_tpu_torch.models.bsrnet import RRDBNet, deg_remove
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+
+    with torch.device("cuda"):
+        model = RRDBNet(dtype=torch.bfloat16).eval().requires_grad_(False)
+    random_init_(model, torch.Generator(device="cuda").manual_seed(14))
+    h, w = BSRNET_PIXELS
+    rng = np.random.default_rng(15)
+    img = torch.from_numpy(rng.integers(0, 256, (1, 3, h, w), dtype=np.uint8)).cuda() / 255.0
+    tiles = []
+    hook = model.register_forward_hook(lambda m, a, o: tiles.append(tuple(a[0].shape)))
+    deg_remove(model, img[:, :, :600, :600])                     # warm-up: 2 x 2 tiles
+    tiles.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out = deg_remove(model, img)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    hook.remove()
+    if tuple(out.shape) != (1, 3, 4 * h, 4 * w) or not bool(torch.isfinite(out).all()):
+        fail(f"bsrnet: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    if len(tiles) != BSRNET_TILES:
+        fail(f"bsrnet: {len(tiles)} tiles, expected {BSRNET_TILES}")
+    crop = img[:, :, :64, :64]
+    cpu = RRDBNet().eval().requires_grad_(False)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        got = model(crop.bfloat16()).float().cpu()
+        want = cpu(crop.cpu())
+    err = (got - want).abs()
+    max_ref, mean_ref = float(want.abs().max()), float(want.abs().mean())
+    ok = (float(err.max()) <= BSRNET_TOL * max_ref
+          and float(err.mean()) <= BSRNET_MEAN_TOL * mean_ref)
+    result = dict(pixels=[h, w], out=list(out.shape), tiles=len(tiles),
+                  tile_shapes=sorted(set(tiles)), wall_s=wall_s,
+                  ms_per_tile=start.elapsed_time(end) / len(tiles),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  crop_max_abs_err=float(err.max()), crop_mean_abs_err=float(err.mean()),
+                  crop_max_ref=max_ref, crop_mean_ref=mean_ref,
+                  tol=f"max {BSRNET_TOL} x max|ref|, mean {BSRNET_MEAN_TOL} x mean|ref|",
+                  ok=ok)
+    print("bsrnet", json.dumps(result), flush=True)
+    if not ok:
+        fail(f"bsrnet: bf16 crop off fp32 by {float(err.max())} (max), "
+             f"{float(err.mean())} (mean)")
+    del model, out, img
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -2056,6 +2482,24 @@ def main() -> int:
         check_caption_small(torch)
         check_llama_prefill(torch)
         caption_counts = run_caption(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("caption_int8"):
+        run_caption(torch, "int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the reference-layout captioner files and their converted copy go
+    # whether the phase passes or fails
+    cap_root = os.path.join(_build.BUILD_DIR, f"caption_weights_{os.getpid()}")
+    try:
+        with phase("cli_caption"):
+            run_cli_caption(torch, cap_root)
+    finally:
+        shutil.rmtree(cap_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("bsrnet"):
+        check_bsrnet(torch)
 
     def entry(name, row, source, replaces, launches=counts):
         return dict(name=name, route="cuda", source=source, replaces=replaces,

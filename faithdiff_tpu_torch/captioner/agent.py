@@ -9,16 +9,18 @@ object with the HF call interface (`tok(text, add_special_tokens=...,
 return_tensors="np").input_ids`, `tok.decode(ids, skip_special_tokens=True)`,
 `tok.eos_token_id`).
 
-`build_caption_agent` makes the models on the card, in bf16, with seeded
-random weights; the LLaMA projections are quantised as they are made.
-Loading released weights (`from_checkpoint` in the JAX package) waits for
-a checkpoint reader and a tokenizer that need neither orbax nor
-transformers.
+`CaptionAgent.from_checkpoint` loads what `utils/convert_cli.py --llava
+--clip_vision` writes from the reference's released files (`llama/`,
+`projector/`, `vision/` of safetensors files, `tokenizer/` with LLaMA's
+`tokenizer.model`, an optional PEFT-style `lora/`), quantising each LLaMA
+projection on the card as it is read. `build_caption_agent` makes the
+models on the card with seeded random weights instead.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List
+import os
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -28,6 +30,7 @@ from .clip_vision import (CLIPVisionConfig, CLIPVisionTower, VisionProjector,
                           preprocess_clip_image, process_anyres_image)
 from .conversation import build_prompt
 from .llama import (LlamaConfig, LlamaForCausalLM, greedy_generate,
+                    is_quantized_projection, quantize_projection,
                     random_init_quantized_)
 
 DEFAULT_QUESTION = "Describe this image and its style in a very detailed manner."
@@ -50,6 +53,71 @@ class CaptionAgent:
     temperature: float = 0.2
     top_p: float = 0.7
     max_new_tokens: int = 512
+
+    @staticmethod
+    @torch.no_grad()
+    def from_checkpoint(ckpt_dir: str, dtype: torch.dtype = torch.bfloat16,
+                        load_8bit: bool = True, load_4bit: bool = False,
+                        model_type: str = "", device="cuda",
+                        llama_config=None,
+                        vision_config: Optional[CLIPVisionConfig] = None,
+                        ) -> "CaptionAgent":
+        """The captioner of a converted checkpoint directory (`llama/`,
+        `projector/`, `vision/`, `tokenizer/`; an optional `lora/` adapter
+        is merged into the LM weights in fp32 before they are quantised, as
+        the reference builder merges it, `llava/model/builder.py:48-90`).
+
+        `model_type` in {"llama", "mistral", "mpt"}; empty infers it from
+        the directory's name as the JAX package does. `load_4bit` quantises
+        the LM projections to NF4 (it takes precedence), else `load_8bit`
+        to int8; MPT is never quantised. Each projection is read from the
+        memory-mapped file, moved to `device`, merged, quantised there and
+        freed, so the full-precision LM is never whole on the card; the
+        buffers equal `quantize_llama_params` of the whole state dict.
+        `llama_config` / `vision_config` replace LLaVA-1.5-13B's (or
+        Mistral-7B's, MPT's) and ViT-L/14-336's configs, for tests at a
+        small size. Raises if `device` is CUDA and no card is there."""
+        from ..utils.safetensors import load_dir
+        from .llama_tokenizer import LlamaTokenizer
+
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CaptionAgent.from_checkpoint: device 'cuda' requested "
+                               "but CUDA is not available (pass device='cpu')")
+        if not model_type:
+            name = os.path.basename(os.path.normpath(ckpt_dir)).lower()
+            model_type = ("mpt" if "mpt" in name
+                          else "mistral" if "mistral" in name else "llama")
+        quant = "nf4" if load_4bit else ("int8" if load_8bit else "")
+        vision_config = vision_config or CLIPVisionConfig()
+        with device:
+            if model_type == "mpt":
+                from .mpt import MPTConfig, MPTForCausalLM
+
+                quant = ""
+                llama = MPTForCausalLM(llama_config or MPTConfig(), dtype=dtype)
+                hidden = llama.config.d_model
+            else:
+                base = llama_config or (LlamaConfig.mistral_7b() if model_type == "mistral"
+                                        else LlamaConfig.llava_13b())
+                llama = LlamaForCausalLM(dataclasses.replace(base, quant=quant),
+                                         dtype=dtype)
+                hidden = llama.config.hidden_size
+            vision = CLIPVisionTower(vision_config, dtype=dtype)
+            projector = VisionProjector(hidden, vision_config.hidden_size, dtype=dtype)
+        lora_dir = os.path.join(ckpt_dir, "lora")
+        lora = load_dir(lora_dir) if os.path.exists(lora_dir) else None
+        state = load_dir(os.path.join(ckpt_dir, "llama"))
+        load_quantized_(llama, state, quant, lora)
+        del state
+        vision.load_state_dict(load_dir(os.path.join(ckpt_dir, "vision")), strict=True)
+        projector.load_state_dict(load_dir(os.path.join(ckpt_dir, "projector")),
+                                  strict=True)
+        for model in (llama, vision, projector):
+            model.eval().requires_grad_(False)
+        return CaptionAgent(llama=llama, vision=vision, projector=projector,
+                            tokenizer=LlamaTokenizer.from_pretrained(
+                                os.path.join(ckpt_dir, "tokenizer")))
 
     @property
     def device(self) -> torch.device:
@@ -148,6 +216,42 @@ class CaptionAgent:
     def caption(self, image: np.ndarray, question: str = DEFAULT_QUESTION,
                 seed: int = 0) -> str:
         return self.caption_batch([image], question, seed)[0]
+
+
+@torch.no_grad()
+def load_quantized_(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                    quant: str, lora: Optional[Mapping[str, torch.Tensor]] = None,
+                    ) -> None:
+    """Load a full-precision LM state dict into `model` (built with
+    `quant`), strictly: each projection is moved to the model's device,
+    merged with its `lora` adapter if it has one (`training.lora`), and
+    quantised there by `quantize_projection`; every other entry is copied
+    in and cast to its parameter's dtype."""
+    from ..training.lora import lora_targets, merge_lora
+
+    targets: Dict[str, torch.Tensor] = dict(model.state_dict())
+    device = next(iter(targets.values())).device
+    adapted = set(lora_targets(lora)) if lora else set()
+    absent = sorted(adapted - set(state_dict))
+    if absent:
+        raise KeyError(f"LoRA adapters for weights the checkpoint lacks: {absent[:3]}")
+    for key in sorted(state_dict):
+        value = state_dict[key]
+        if key in adapted or is_quantized_projection(key, quant):
+            value = value.to(device)                 # merged and quantised there
+        if key in adapted:
+            value = merge_lora({key: value}, lora)[key]
+        for name, tensor in quantize_projection(key, value, quant).items():
+            if name not in targets:
+                raise KeyError(f"unexpected key in the checkpoint: {name}")
+            target = targets.pop(name)
+            if tuple(target.shape) != tuple(tensor.shape):
+                raise ValueError(f"{name}: checkpoint shape {tuple(tensor.shape)}, "
+                                 f"model {tuple(target.shape)}")
+            target.copy_(tensor)
+        del value
+    if targets:
+        raise KeyError(f"missing keys in the checkpoint: {sorted(targets)[:5]}")
 
 
 @torch.no_grad()

@@ -439,29 +439,46 @@ _QUANT_PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
                      "gate_proj", "up_proj", "down_proj", "lm_head")
 
 
+def is_quantized_projection(key: str, mode: str) -> bool:
+    """Whether a full-precision state-dict key is a projection weight that
+    the `quant=mode` model holds quantised."""
+    if mode not in ("", "int8", "nf4"):
+        raise ValueError(f"unknown quantisation mode {mode!r}")
+    prefix, _, leaf = key.rpartition(".")
+    name = prefix.rpartition(".")[2]
+    return bool(mode) and leaf == "weight" and name in _QUANT_PROJ_NAMES and not (
+        mode == "nf4" and name == "lm_head")
+
+
+@torch.no_grad()
+def quantize_projection(key: str, value: torch.Tensor,
+                        mode: str) -> Dict[str, torch.Tensor]:
+    """One entry of a full-precision LLaMA state dict -> its entries in the
+    `quant=mode` model, on `value`'s device: a projection `<p>.weight`
+    [out, in] becomes `<p>.values` int8 [in, out] + `<p>.scales` (int8) or
+    `<p>.packed` uint8 [out, in/2] + `<p>.absmax` (half-row NF4; `lm_head`
+    stays under nf4); any other entry, and every entry under mode "",
+    stays as it is."""
+    if not is_quantized_projection(key, mode):
+        return {key: value}
+    prefix = key.rpartition(".")[0]
+    if mode == "nf4":
+        q = quantize_nf4(value.T)
+        return {prefix + ".packed": q.packed, prefix + ".absmax": q.absmax}
+    q = quantize_int8(value.T)
+    return {prefix + ".values": q.values, prefix + ".scales": q.scales}
+
+
 @torch.no_grad()
 def quantize_llama_params(state_dict: Dict[str, torch.Tensor],
                           mode: str = "int8") -> Dict[str, torch.Tensor]:
     """Full-precision state dict -> the `quant="int8"` / `quant="nf4"`
-    model's state dict. Each projection `<p>.weight` [out, in] becomes
-    `<p>.values` int8 [in, out] + `<p>.scales`, or `<p>.packed` uint8
-    [out, in/2] + `<p>.absmax` (half-row NF4); under nf4 `lm_head` stays."""
+    model's state dict, entry by entry (`quantize_projection`)."""
     if mode not in ("int8", "nf4"):
         raise ValueError(f"unknown quantisation mode {mode!r}")
     out: Dict[str, torch.Tensor] = {}
     for key, value in state_dict.items():
-        prefix, _, leaf = key.rpartition(".")
-        name = prefix.rpartition(".")[2]
-        if leaf != "weight" or name not in _QUANT_PROJ_NAMES or (
-                mode == "nf4" and name == "lm_head"):
-            out[key] = value
-            continue
-        if mode == "nf4":
-            q = quantize_nf4(value.T)
-            out[prefix + ".packed"], out[prefix + ".absmax"] = q.packed, q.absmax
-        else:
-            q = quantize_int8(value.T)
-            out[prefix + ".values"], out[prefix + ".scales"] = q.values, q.scales
+        out.update(quantize_projection(key, value, mode))
     return out
 
 

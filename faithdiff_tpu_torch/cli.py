@@ -6,6 +6,8 @@
         [--upscale 2] [--use_tile_vae] [--hdr 0.5]
     python -m faithdiff_tpu_torch.cli embed --caption_dir caps/ \\
         --save_dir embeds/ [--tokenizer_dir sdxl/] [--text_encoder_dir T]
+    python -m faithdiff_tpu_torch.cli caption --img_dir in/ --save_dir caps/ \\
+        --captioner_dir ckpts/captioner [--use_bsrnet]
 
 `restore` takes the JAX CLI's flags with the same defaults and runs its
 loop: every `*.png` of `--img_dir` in sorted order, skipping those whose
@@ -20,12 +22,20 @@ that model. With `--tokenizer_dir` (SDXL's `tokenizer/` and
 without them the prompt embeddings are zeros, as in the JAX CLI.
 `--canvas_resume_dir` keeps each step's canvas of a restore above
 `host_loop_tile_threshold` tiles in a directory per image, from which a
-re-run resumes. The pipeline runs `TILE_CHUNK` tiles a UNet call. Both
-commands run on the CUDA card unless `--device cpu` is given.
+re-run resumes. The pipeline runs `TILE_CHUNK` tiles a UNet call.
+
+`caption` runs the JAX CLI's loop: the LLaVA-1.5 captioner of
+`--captioner_dir` (what `convert_cli --llava --clip_vision` writes, int8 as
+`CaptionAgent.from_checkpoint` defaults), then every file of `--img_dir`
+in sorted order, skipping those whose JSON exists, one image a caption with
+seed 0, written as `{"caption": ...}` to `<save_dir>/<stem>.json`: the
+captions `restore --json_dir` reads. `--use_bsrnet` is parsed and not
+applied, as in the JAX CLI (a warning says so). Every command runs on the
+CUDA card unless `--device cpu` is given.
 
 What the port does not serve yet raises NotImplementedError naming its
-ROADMAP item: the `caption`, `train` and `metrics` commands, `--use_fp8`,
-`--tile_devices` above 1 and JPEG inputs.
+ROADMAP item: the `train` and `metrics` commands, `--use_fp8`,
+`--tile_devices` above 1 and inputs other than PNG.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import time
 
 import torch
 
+from .captioner.agent import CaptionAgent
 from .config import (CLIPTextConfig, PipelineConfig,
                      tiny_denoise_encoder_config, tiny_text_encoder_configs,
                      tiny_unet_config, tiny_vae_config)
@@ -48,11 +59,10 @@ from .training.text_embeds import precompute_embeds, trim_caption
 from .utils.image import check_image_size, create_hdr_effect
 from .utils.png import read_png, write_png
 from .utils.resample import resize_lanczos
-from .utils.safetensors import load_file
+from .utils.safetensors import load_dir
 
 _RESTORE_OPTIONS = "ROADMAP §1.1 (restore pipeline options)"
 _NOT_YET = {
-    "caption": "ROADMAP §1.3 (caption CLI, captioner weights and BSRNet)",
     "train": "ROADMAP §1.4 (training and data)",
     "metrics": "ROADMAP §1.6 (eval)",
 }
@@ -62,17 +72,6 @@ _NOT_YET = {
 # 8, 139 ms at 12, where the 77-token cross-attention's score matrix
 # passes the gate of `ops.attention.chunked_attention`)
 TILE_CHUNK = 8
-
-
-def _load_dir(path: str) -> dict:
-    """Every `*.safetensors` file of a directory, merged in sorted order."""
-    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
-    if not files:
-        raise FileNotFoundError(f"no *.safetensors under {path}")
-    sd = {}
-    for f in files:
-        sd.update(load_file(f))
-    return sd
 
 
 def build_text_encoder(tiny: bool, device, state_dict=None,
@@ -162,7 +161,7 @@ def load_checkpointed_pipeline(args):
         if not args.checkpoint_dir:
             return None
         full = os.path.join(args.checkpoint_dir, name)
-        return _load_dir(full) if os.path.isdir(full) else None
+        return load_dir(full) if os.path.isdir(full) else None
 
     pipeline_config = PipelineConfig(
         num_inference_steps=args.num_inference_steps,
@@ -201,7 +200,7 @@ def make_text_encoder(args):
         return None
     tok = SDXLTokenizer(os.path.join(args.tokenizer_dir, "tokenizer"),
                         os.path.join(args.tokenizer_dir, "tokenizer_2"))
-    enc = build_text_encoder(args.tiny, args.device, _load_dir(te_dir))
+    enc = build_text_encoder(args.tiny, args.device, load_dir(te_dir))
 
     @torch.no_grad()
     def encode(text: str):
@@ -307,7 +306,7 @@ def cmd_embed(argv) -> int:
         tok = HashTokenizer(vocab_size=128 if args.tiny else 49408)
     if args.text_encoder_dir:
         enc = build_text_encoder(args.tiny, args.device,
-                                 _load_dir(args.text_encoder_dir))
+                                 load_dir(args.text_encoder_dir))
     else:
         print("WARNING: no --text_encoder_dir; random-init towers "
               "(smoke runs only)")
@@ -326,13 +325,54 @@ def cmd_embed(argv) -> int:
     return 0
 
 
+def cmd_caption(argv) -> int:
+    """Caption JSONs for the images of a directory (`faithdiff_tpu/cli.py`
+    `cmd_caption`)."""
+    p = argparse.ArgumentParser("caption")
+    p.add_argument("--img_dir", required=True)
+    p.add_argument("--save_dir", required=True)
+    p.add_argument("--captioner_dir", required=True,
+                   help="converted captioner (llama/ projector/ vision/ "
+                        "tokenizer/ [lora/]), as convert_cli writes it")
+    p.add_argument("--use_bsrnet", action="store_true",
+                   help="parsed and not applied, as in the JAX CLI")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the captioner runs on")
+    args = p.parse_args(argv)
+    paths = sorted(q for q in glob.glob(os.path.join(args.img_dir, "*"))
+                   if os.path.isfile(q))
+    others = [q for q in paths if not q.lower().endswith(".png")]
+    if others:
+        raise NotImplementedError(
+            f"{others[0]}: not a PNG; other input formats are "
+            f"{_RESTORE_OPTIONS}")
+    if args.use_bsrnet:
+        print("WARNING: --use_bsrnet is not applied (the JAX CLI parses it "
+              "and never reads it); the images are captioned as they are")
+    agent = CaptionAgent.from_checkpoint(args.captioner_dir, device=args.device)
+    os.makedirs(args.save_dir, exist_ok=True)
+    for path in paths:
+        name = os.path.splitext(os.path.basename(path))[0]
+        out_path = os.path.join(args.save_dir, f"{name}.json")
+        if os.path.exists(out_path):
+            print(f"skip {name}")
+            continue
+        t0 = time.perf_counter()
+        caption = agent.caption(read_png(path), seed=0)
+        with open(out_path, "w") as f:
+            json.dump({"caption": caption}, f)
+        print(f"captioned {name}: caption_s={time.perf_counter() - t0:.4f} "
+              f"{caption[:80]!r}")
+    return 0
+
+
 def _not_yet(command: str):
     def run(argv):
         raise NotImplementedError(f"{command}: {_NOT_YET[command]}")
     return run
 
 
-COMMANDS = {"restore": cmd_restore, "caption": _not_yet("caption"),
+COMMANDS = {"restore": cmd_restore, "caption": cmd_caption,
             "embed": cmd_embed, "train": _not_yet("train"),
             "metrics": _not_yet("metrics")}
 

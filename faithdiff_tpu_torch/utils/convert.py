@@ -37,6 +37,14 @@ modules (`unet_state_dict_from_reference`); `export_faithdiff_bin` is the
 inverse. The JAX package's renames (`_UNET_RENAMES`, the flax module
 tree) and their inverse compose to the identity on these names, which the
 tests hold.
+
+The captioner's released files need as little: LLaVA-1.5's state dict is
+transformers' LLaMA keys plus `model.mm_projector.{0,2}.*`
+(`llava_state_dicts_from_reference` splits them and drops the rotary
+tables), and openai's CLIP file keeps its `vision_model.*` keys without
+`post_layernorm` and `position_ids` (`clip_vision_state_dict_from_reference`).
+`bsrnet_state_dict_from_flax` carries the JAX BSRNet to the reference's
+names.
 """
 from __future__ import annotations
 
@@ -306,6 +314,51 @@ def mpt_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         return "transformer." + ".".join(parts)
 
     return _carry(params, rename)
+
+
+# the released LLaVA-1.5 file's projector keys, and the keys the port's
+# modules have no place for: transformers' rotary tables (saved by the
+# releases of its 4.31 era) and a CLIP file's post-layernorm (LLaVA takes
+# the hidden states before it), position ids, text tower and projections
+LLAVA_PROJECTOR = "model.mm_projector."
+_DROPPED_LLAMA = re.compile(r"(^|\.)rotary_emb\.inv_freq$|^model\.vision_tower\.")
+_KEPT_CLIP = re.compile(r"^vision_model\.")
+_DROPPED_CLIP = re.compile(r"^vision_model\.(post_layernorm\.|embeddings\.position_ids$)")
+
+
+def llava_state_dicts_from_reference(
+    sd: Mapping[str, Any],
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A released LLaVA-1.5 state dict (or one shard of it) -> (the port's
+    `LlamaForCausalLM` keys, the `VisionProjector` keys): the projector's
+    `model.mm_projector.{0,2}.*` lose their namespace, the rotary tables
+    and any vision-tower keys go, the rest are transformers' names already
+    (the counterpart of `convert_llama` / `convert_vision_projector`)."""
+    llama: Dict[str, Any] = {}
+    projector: Dict[str, Any] = {}
+    for key, value in sd.items():
+        if key.startswith(LLAVA_PROJECTOR):
+            projector[key[len(LLAVA_PROJECTOR):]] = value
+        elif not _DROPPED_LLAMA.search(key):
+            llama[key] = value
+    return llama, projector
+
+
+def clip_vision_state_dict_from_reference(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """openai/clip-vit-large-patch14-336's state dict (a whole CLIPModel or
+    a CLIPVisionModel) -> the port's `CLIPVisionTower` keys: `vision_model.*`
+    without `post_layernorm` and `position_ids` (the counterpart of
+    `convert_clip_vision`); the text tower, `visual_projection`,
+    `text_projection` and `logit_scale` go."""
+    return {k: v for k, v in sd.items()
+            if _KEPT_CLIP.match(k) and not _DROPPED_CLIP.match(k)}
+
+
+def bsrnet_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `RRDBNet` params -> the reference BSRNet's keys (`conv_first`,
+    `RRDB_trunk.{i}.RDB{1,2,3}.conv{1..5}`, `trunk_conv`, `upconv1/2`,
+    `HRconv`, `conv_last`), conv kernels HWIO -> OIHW."""
+    return _carry(params, lambda path: ".".join(_index(p, "RRDB_trunk") for p in path))
 
 
 TEXT_TOWERS = ("text_encoder", "text_encoder_2")

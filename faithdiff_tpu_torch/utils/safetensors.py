@@ -14,7 +14,9 @@ has no bfloat16: BF16 buffers are read as int16 and viewed as
 """
 from __future__ import annotations
 
+import glob
 import json
+import os
 import struct
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -91,6 +93,17 @@ def load_file(path: str) -> Dict[str, torch.Tensor]:
     if start + end_prev != buf.size:
         raise ValueError(f"{path}: {buf.size - start - end_prev} bytes past "
                          "the last tensor")
+    return out
+
+
+def load_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every `*.safetensors` file of a directory, merged in sorted order."""
+    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no *.safetensors under {path}")
+    out: Dict[str, torch.Tensor] = {}
+    for f in files:
+        out.update(load_file(f))
     return out
 
 

@@ -415,7 +415,7 @@ def test_restore_refuses_what_it_does_not_serve(tmp_path, flags):
     assert not os.path.exists(tmp_path / "out")
 
 
-@pytest.mark.parametrize("command", ["caption", "train", "metrics"])
+@pytest.mark.parametrize("command", ["train", "metrics"])
 def test_commands_not_ported_raise(command):
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.\d"):
         cli.main([command, "--img_dir", "x"])

@@ -631,3 +631,35 @@ def test_text_towers_bf16_on_the_card_match_fp32_on_the_cpu(cuda):
         assert g.device.type == "cuda" and g.dtype == torch.bfloat16
         err = (g.float().cpu() - w).abs()
         assert bool((err <= 5e-2 * (1 + w.abs())).all()), float(err.max())
+
+
+def test_int8_captioner_on_the_card_matches_the_cpu(cuda):
+    """A tiny int8 LLaMA (the caption CLI's default quantisation), bf16 on
+    the card against the same weights in fp32 on the CPU: prefill logits
+    and one-row logits within 5e-2 * (1 + |ref|), the tolerance of the
+    tiny nf4 captioner's check in `chip_smoke.py`; no NF4 launch."""
+    from faithdiff_tpu_torch.captioner.llama import (LlamaConfig,
+                                                     LlamaForCausalLM,
+                                                     random_init_quantized_)
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), quant="int8")
+    cpu = LlamaForCausalLM(cfg).eval().requires_grad_(False)
+    gen = torch.Generator().manual_seed(3)
+    random_init_(cpu, gen)
+    random_init_quantized_(cpu, gen)
+    with cuda:
+        card = LlamaForCausalLM(cfg, dtype=torch.bfloat16).eval().requires_grad_(False)
+    card.load_state_dict(cpu.state_dict())
+    emb = torch.randn((2, 12, cfg.hidden_size), generator=gen)
+    pos = torch.arange(12)[None].expand(2, 12)
+    _build.launches.clear()
+    with torch.no_grad():
+        for e, p in ((emb, pos), (emb[:1, :1], pos[:1, :1])):
+            ref, _ = cpu(e, p)
+            got, _ = card(e.to(cuda).bfloat16(), p.to(cuda))
+            assert got.dtype == torch.bfloat16
+            err = (got.float().cpu() - ref).abs()
+            assert bool((err <= 5e-2 * (1 + ref.abs())).all()), float(err.max())
+    torch.cuda.synchronize()
+    assert not _build.launches.get("nf4_matmul")
