@@ -121,7 +121,36 @@
    `bsrnet`: the full-width RRDBNet (x4) in bf16, `deg_remove` of a
    1024x1536 image (6 tiles -> 4096x6144), a 64x64 crop against fp32 on
    the CPU.
-9. Prints the card line, a JSON line listing every ported kernel, then a
+9. Training (`cli.py train`). `train_autograd`: the three kernel entry
+   points under autograd in bf16 (flash [16,10,1024,64] and
+   [2,10,4096,64], packed [16,1024,640] with 10 heads, GroupNorm
+   [16,320,64,64] + SiLU + add on the single-pass route and
+   [2,128,512,512] + SiLU on the two-pass route): the forward equal in
+   every bit to the bare kernel and within 1e-2 + 8e-3*|ref| of the plain
+   version (the restore checks' tolerance), one launch a forward and none
+   in the backward, every gradient equal in every bit to autograd over the
+   plain version (the backward is that autograd, on the same inputs);
+   kernel-forward and backward ms. `train_stage1`: the
+   full-width UNet, denoise encoder and VAE built on the card from a
+   seeded init (the fusion adapters without their zero init), 512 px,
+   batch 16 (or the largest that fits), accum 4, no remat: an optimizer
+   step and a micro-step; frozen tensors keep every bit, every adapter
+   tensor (spatial_ch_projs too) changes at the 4th micro-step only,
+   flash launches one per self-attention at >= 1024 tokens, GroupNorm
+   launches as planned; ms per micro-step (CUDA events), peak GiB.
+   `train_stage2`: batch 2, accum 16, remat, EMA every update: two
+   optimizer steps; every tensor changes at each boundary only, the EMA
+   moves at each boundary, the launches include remat's recomputed
+   forwards; the second boundary under torch.profiler, its device time
+   split into forward, backward (and its plain attention / GroupNorm
+   recompute) and optimizer. `cli_train`: `cli.main(["train",
+   "--synthetic_data", ...])` at full width with checkpoints and a
+   resume (kept steps, metrics rows, the restored state equal in every
+   checksum to the saved one, the steps continuing), then a run over
+   seeded PNG pairs with captions and a validation strip; the files are
+   deleted afterwards.
+10. Prints the card line, a JSON line listing every ported kernel (with
+   its launches per training micro-step of both stages), then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
 
@@ -129,9 +158,11 @@ Imports nothing of JAX. Exits nonzero on any failure.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -2376,6 +2407,609 @@ def check_bsrnet(torch) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd, stages 1 and 2 at full width, and
+# `cli.py train`
+# ---------------------------------------------------------------------------
+
+TRAIN_RES = 512
+# flash BHSD: the stage-1 UNet self-attention at 32^2 latents (batch 16)
+# and a 4096-token case at the stage-2 batch; packed: the same 1024-token
+# attention on the packed path; GroupNorm: a UNet ResNet norm at 64^2
+# latents (single pass) and the denoise encoder's first norm at 512 px
+# (two passes: its group outgrows a cluster)
+TRAIN_ATTN_SHAPES = [(16, 10, 1024, 64), (2, 10, 4096, 64)]
+TRAIN_PACKED = ((16, 1024, 640), 10)
+TRAIN_GN = [((16, 320, 64, 64), 1e-5, "silu", True, "fused"),
+            ((2, 128, 512, 512), 1e-6, "silu", False, "two_pass")]
+# the JAX stage defaults (batch, accum, remat); stage 1 falls back to the
+# largest batch that fits in TRAIN_FALLBACK_BATCHES
+STAGE1, STAGE2 = (16, 4, False), (2, 16, True)
+TRAIN_FALLBACK_BATCHES = (12, 8, 6, 4, 2)
+TRAIN_COUNTERS = ("flash_attention_fwd", "flash_attention_bsnd_fwd",
+                  "attention_variant_fwd", "group_norm_fused",
+                  "group_norm_stats", "group_norm_apply", "nf4_matmul")
+
+
+def check_train_autograd(torch):
+    """The three entry points under autograd in bf16 at the training path's
+    shapes: the forward equal in every bit to the bare kernel call and
+    within 1e-2 + 8e-3*|ref| of the plain version (as in the restore
+    checks: bf16 roundings at other points), one launch a forward and none
+    in the backward. A Function's backward is autograd over the plain
+    version on the saved inputs with autocast off, so every gradient must
+    equal, bit for bit, autograd over the plain version on the same
+    inputs; max|err| is printed beside it. Kernel forward and backward ms."""
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops import attention as A
+    from faithdiff_tpu_torch.ops import groupnorm as G
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def leaf(shape, dtype=torch.bfloat16, offset=0.0, scale=1.0):
+        t = torch.randn(shape, generator=gen, device="cuda") * scale + offset
+        return t.to(dtype).requires_grad_(True)
+
+    def run(label, entry, bare, plain, inputs, counters):
+        _build.launches.clear()
+        out = entry(*inputs)
+        torch.cuda.synchronize()
+        fwd_launches = {c: _build.launches[c] for c in counters}
+        with torch.no_grad():
+            same = torch.equal(out, bare(*inputs))
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+        wrt = [t for t in inputs if t is not None]
+        _build.launches.clear()
+        grads = torch.autograd.grad(out, wrt, g, retain_graph=True)
+        bwd_launches = sum(_build.launches.values())
+        leaves = [t.detach().requires_grad_(True) for t in wrt]
+        it = iter(leaves)
+        plain_inputs = [None if t is None else next(it) for t in inputs]
+        plain_out = plain(*plain_inputs)
+        ref = plain_out.detach().float()
+        fwd_err = (out.detach().float() - ref).abs()
+        fwd_ok = (bool((fwd_err <= 1e-2 + 8e-3 * ref.abs()).all())
+                  and bool(torch.isfinite(out).all()))
+        fwd_err = float(fwd_err.max())
+        del ref
+        refs = torch.autograd.grad(plain_out, leaves, g)
+        del plain_out
+        grads_equal = [torch.equal(a, b) for a, b in zip(grads, refs)]
+        errs = [((a.float() - b.float()).abs().max().item(),
+                 b.float().abs().max().item()) for a, b in zip(grads, refs)]
+        ok = (same and fwd_ok and all(n == 1 for n in fwd_launches.values())
+              and bwd_launches == 0 and all(grads_equal))
+        with torch.no_grad():
+            fwd_ms = time_ms(torch, lambda: bare(*inputs), 5)
+        bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, wrt, g, retain_graph=True), 3, 1)
+        row = dict(check="train_autograd", kernel=label,
+                   shapes=[list(t.shape) for t in wrt], same_forward=same,
+                   forward_max_abs_err=fwd_err, forward_tol="1e-2 + 8e-3*|ref|",
+                   forward_launches=fwd_launches, backward_launches=bwd_launches,
+                   grads_equal=grads_equal, grad_max_err=[e for e, _ in errs],
+                   grad_max_ref=[m for _, m in errs], kernel_forward_ms=fwd_ms,
+                   backward_ms=bwd_ms, ok=ok)
+        print(json.dumps(row), flush=True)
+        del out, grads, refs
+        return row
+
+    rows = []
+    for shape in TRAIN_ATTN_SHAPES:
+        q, k, v = (leaf(shape) for _ in range(3))
+        rows.append(run(
+            "flash_attention", lambda q, k, v: A.flash_attention(q, k, v, 0.125),
+            lambda q, k, v: A._flash_attention_launch(q, k, v, 0.125, False),
+            lambda q, k, v: A.attention_reference(q, k, v, 0.125),
+            [q, k, v], ("flash_attention_fwd",)))
+    shape, heads = TRAIN_PACKED
+    q, k, v = (leaf(shape) for _ in range(3))
+    rows.append(run(
+        "flash_attention_packed",
+        lambda q, k, v: A.flash_attention_packed(q, k, v, heads, 0.125),
+        lambda q, k, v: A._flash_packed_launch(q, k, v, heads, 0.125),
+        lambda q, k, v: A.einsum_bsnd(q, k, v, heads, 0.125),
+        [q, k, v], ("flash_attention_bsnd_fwd",)))
+    for shape, eps, act, with_add, route in TRAIN_GN:
+        plan = G.plan_group_norm(shape, 2, 32)
+        if plan.route != route:
+            fail(f"train_autograd: {shape} plans {plan.route}, expected {route}")
+        x = leaf(shape, scale=2.0, offset=0.5)
+        s = leaf(shape[1], torch.float32, offset=1.0, scale=0.1)
+        b = leaf(shape[1], torch.float32, scale=0.1)
+        a = leaf(shape[:2]) if with_add else None
+        rows.append(run(
+            f"group_norm_{route}",
+            lambda x, s, b, a: G.group_norm(x, s, b, 32, eps, act, a),
+            lambda x, s, b, a: G.GroupNormLaunch(x, s, b, 32, eps, act, a).run(),
+            lambda x, s, b, a: G.group_norm_reference(x, s, b, 32, eps, act, a),
+            [x, s, b, a], plan.counters))
+        del x, s, b, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def nonzero_adapters_(torch, unet, seed: int) -> None:
+    """The fusion adapters without their zero init (weights N(0, 1/fan_in),
+    biases 0.1 N(0, 1), norm weights 1 + 0.1 N(0, 1)), so that every
+    trainable tensor, and in stage 2 the denoise encoder behind them, gets
+    a nonzero gradient."""
+    from faithdiff_tpu_torch.training.train import _ADAPTER_KEYS, flax_module_of
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if flax_module_of(name) not in _ADAPTER_KEYS:
+                continue
+            noise = torch.randn(p.shape, generator=gen, device=p.device)
+            if p.ndim > 1:
+                p.copy_(noise * p[0].numel() ** -0.5)
+            elif name.endswith("bias"):
+                p.copy_(0.1 * noise)
+            else:
+                p.copy_(1 + 0.1 * noise)
+
+
+def checksums(torch, tensors):
+    """One int64 per fp32 tensor: the sum of its bit patterns, which any
+    change of a bit moves (barring an exact cancellation)."""
+    return torch.stack([t.detach().view(torch.int32).sum(dtype=torch.int64)
+                        for t in tensors]).cpu()
+
+
+class TrainWatch:
+    """Forward pre-hooks for a training run: each self-attention (attn1)
+    call at >= 1024 tokens, which must be one flash launch, and each
+    GroupNorm call's plan, whose counters it must add to; recomputed
+    forwards under checkpointing run the hooks again."""
+
+    def __init__(self, torch, models):
+        from faithdiff_tpu_torch.models.layers import GroupNorm
+        from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
+        from faithdiff_tpu_torch.ops.groupnorm import plan_group_norm
+
+        self.expected = {}
+
+        def add(name):
+            self.expected[name] = self.expected.get(name, 0) + 1
+
+        def attn_hook(module, args):
+            if args[0].shape[1] >= 1024:
+                add("flash_attention_fwd")
+
+        def gn_hook(module, args):
+            x = args[0]
+            for name in plan_group_norm(tuple(x.shape), x.element_size(),
+                                        module.num_groups,
+                                        x.data_ptr() % 16 == 0).counters:
+                add(name)
+
+        self.hooks = []
+        for model in models:
+            for m in model.modules():
+                if isinstance(m, BasicTransformerBlock):
+                    self.hooks.append(m.attn1.register_forward_pre_hook(attn_hook))
+                elif isinstance(m, GroupNorm):
+                    self.hooks.append(m.register_forward_pre_hook(gn_hook))
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def build_train(torch, stage: int, batch: int, accum: int, remat: bool,
+                ema_interval: int = 100):
+    """Full-width UNet, denoise encoder and VAE built on the card from a
+    seeded init (fp32 master weights), the adapters without their zero
+    init, the stage's TrainState and its bf16 step."""
+    from faithdiff_tpu_torch.config import (DenoiseEncoderConfig, TrainConfig,
+                                            UNetConfig, VAEConfig)
+    from faithdiff_tpu_torch.training import runner
+    from faithdiff_tpu_torch.training.train import (init_train_state,
+                                                    make_train_step)
+
+    args = runner.parse_args(["--output_dir", "unused", "--seed", "0"])
+    t0 = time.perf_counter()
+    unet, de, vae = runner.build_models(
+        args, UNetConfig(remat=remat), VAEConfig(),
+        DenoiseEncoderConfig(remat=remat), torch.device("cuda"))
+    nonzero_adapters_(torch, unet, 1)
+    cfg = TrainConfig(stage=stage, batch_size_per_device=batch,
+                      grad_accum=accum, lr_warmup_steps=0,
+                      ema_update_interval=ema_interval)
+    state = init_train_state(cfg, unet, de)
+    step = make_train_step(unet, de, vae, cfg)
+    torch.cuda.synchronize()
+    print(f"train_stage{stage}: built in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in state.trainable().values()) / 1e9:.4f} B "
+          "trainable", flush=True)
+    return state, step, vae
+
+
+def train_batches(batch: int):
+    from faithdiff_tpu_torch.training.runner import _synthetic_batches
+
+    return _synthetic_batches(batch, TRAIN_RES, 2048, 1280, seed=0)
+
+
+def fit_stage1_batch(torch, state, step) -> tuple:
+    """The largest batch of (STAGE1 batch,) + TRAIN_FALLBACK_BATCHES whose
+    micro-step fits the card, and the OOMs met on the way. A failed try
+    leaves the state as it was: its gradients are dropped before the
+    optimizer could see them."""
+    ooms = []
+    for batch in (STAGE1[0],) + TRAIN_FALLBACK_BATCHES:
+        try:
+            gen = torch.Generator().manual_seed(9)
+            step(state, next(train_batches(batch)), gen)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            ooms.append(dict(batch=batch, error=str(e).splitlines()[0][:200]))
+            for p in state.trainable().values():
+                p.grad = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        # undo the probe's micro-step: drop its gradient, rewind the counts
+        for p in state.trainable().values():
+            p.grad = None
+        state.opt.mini_step, state.step = 0, 0
+        return batch, ooms
+    fail(f"train_stage1: no batch fits: {ooms}")
+
+
+def run_train_micro_steps(torch, label, state, step, batch, n, models,
+                          profile_at=None):
+    """`n` micro-steps on synthetic batches with the launch counters
+    cleared first; checks the launches against the hooks' plan and
+    returns (per-micro-step trainable and EMA checksums, ms list,
+    launches, metrics, profile). Micro-step `profile_at` (0-based) runs
+    under torch.profiler (its trace split by `trace_split`; its ms are
+    kept out of the list)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from faithdiff_tpu_torch.ops import _build
+
+    batches = train_batches(batch)
+    gen = torch.Generator().manual_seed(1)
+    params = list(state.trainable().values())
+    sums = [checksums(torch, params)]
+    ema_sums = [checksums(torch, list(state.ema.params.values()))]
+    watch = TrainWatch(torch, models)
+    ms, metrics, split = [], [], None
+    _build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(n):
+            b = next(batches)
+            torch.cuda.synchronize()
+            if i == profile_at:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    m = step(state, b, gen)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                path = os.path.join(_build.BUILD_DIR, f"{label}_trace.json")
+                prof.export_chrome_trace(path)
+                split = dict(trace_split(torch, path), micro_step=i + 1,
+                             profiled_wall_ms=wall_ms)
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                m = step(state, b, gen)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            metrics.append({k: float(v) for k, v in m.items()})
+            sums.append(checksums(torch, params))
+            ema_sums.append(checksums(torch, list(state.ema.params.values())))
+    finally:
+        watch.remove()
+    launches = {k: _build.launches[k] for k in TRAIN_COUNTERS}
+    expected = {k: watch.expected.get(k, 0) for k in TRAIN_COUNTERS}
+    if launches != expected:
+        fail(f"{label}: launches {launches}, expected {expected}")
+    if not expected["flash_attention_fwd"]:
+        fail(f"{label}: no self-attention reached the flash kernel")
+    for i, m in enumerate(metrics):
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            fail(f"{label}: micro-step {i + 1} metrics {m}")
+    return sums, ema_sums, ms, launches, metrics, split
+
+
+def changed_at(sums) -> list:
+    """For each micro-step, how many tensors changed."""
+    return [int((b != a).sum()) for a, b in zip(sums, sums[1:])]
+
+
+def run_train_stage1(torch) -> dict:
+    """Stage 1 at the JAX defaults (batch 16, accum 4, remat off), or the
+    largest batch that fits: one optimizer step plus one micro-step.
+    Frozen tensors keep every bit; every adapter tensor, spatial_ch_projs
+    included, changes at the 4th micro-step and at no other."""
+    batch, accum, remat = STAGE1
+    state, step, vae = build_train(torch, 1, batch, accum, remat)
+    frozen = [p for m in (state.unet, state.denoise_encoder)
+              for p in m.parameters() if not p.requires_grad]
+    frozen_before = checksums(torch, frozen)
+    names = list(state.trainable())
+    if not any(n.startswith("unet.spatial_ch_projs.") for n in names):
+        fail("train_stage1: spatial_ch_projs is not trainable")
+    fit, ooms = fit_stage1_batch(torch, state, step)
+    sums, _, ms, launches, metrics, _ = run_train_micro_steps(
+        torch, "train_stage1", state, step, fit, accum + 1,
+        (state.unet, state.denoise_encoder, vae))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = changed_at(sums)
+    if changed != [0] * (accum - 1) + [len(names), 0]:
+        fail(f"train_stage1: tensors changed per micro-step {changed}, "
+             f"expected {len(names)} at micro-step {accum} only")
+    if not torch.equal(frozen_before, checksums(torch, frozen)):
+        fail("train_stage1: a frozen tensor changed")
+    per_step = {k: v // (accum + 1) for k, v in launches.items()}
+    row = dict(check="train_stage1", batch=fit, default_batch=batch,
+               ooms=ooms, grad_accum=accum, remat=remat, res=TRAIN_RES,
+               trainable_tensors=len(names), frozen_tensors=len(frozen),
+               changed_per_micro_step=changed,
+               ms_per_micro_step=ms, ms_median=median(ms[1:]),
+               peak_gib=peak, launches_per_micro_step=per_step,
+               loss=[m["loss"] for m in metrics],
+               grad_norm=[m["grad_norm"] for m in metrics])
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def trace_split(torch, path: str) -> dict:
+    """Device ms of a training micro-step's trace by phase (the step's
+    train_step.forward / .backward / .optimizer ranges, attributing each
+    kernel by the host time of its launch), the backward's share spent in
+    the plain attention recompute (the `plain_backward:attention_reference`
+    and `:einsum_bsnd` ranges, on the launching thread), the GroupNorm
+    recompute's, and the device's busy share."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and "dur" in e]
+    phases = [r for r in ranges if r["name"].startswith("train_step.")]
+    plain = {}                      # tid -> sorted (start, end, name)
+    for r in ranges:
+        if r["name"].startswith("plain_backward:"):
+            plain.setdefault(r["tid"], []).append(
+                (r["ts"], r["ts"] + r["dur"], r["name"]))
+    starts = {tid: [x[0] for x in sorted(v)] for tid, v in plain.items()}
+    plain = {tid: sorted(v) for tid, v in plain.items()}
+
+    def phase_of(ev):
+        for r in phases:
+            if r["ts"] <= ev["ts"] <= r["ts"] + r["dur"]:
+                return r["name"].split(".", 1)[1]
+        return "other"
+
+    def plain_of(ev):
+        spans = plain.get(ev["tid"])
+        if not spans:
+            return None
+        i = bisect.bisect_right(starts[ev["tid"]], ev["ts"]) - 1
+        if i >= 0 and spans[i][0] <= ev["ts"] <= spans[i][1]:
+            return spans[i][2]
+        return None
+
+    split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0, "other": 0.0}
+    recompute = {"attention": 0.0, "group_norm": 0.0}
+    for k in kernels:
+        ev = launch.get(k["args"].get("correlation"))
+        ms = k["dur"] / 1e3
+        split[phase_of(ev) if ev else "other"] += ms
+        sub = plain_of(ev) if ev else None
+        if sub in ("plain_backward:attention_reference",
+                   "plain_backward:einsum_bsnd"):
+            recompute["attention"] += ms
+        elif sub == "plain_backward:group_norm_plain":
+            recompute["group_norm"] += ms
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, spans[0][0]
+    for s, t in spans:
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    span_ms = (end - spans[0][0]) / 1e3
+    return dict(device_ms_by_phase=split, kernel_ms=sum(split.values()),
+                span_ms=span_ms, busy_share=busy / 1e3 / span_ms,
+                backward_plain_attention_ms=recompute["attention"],
+                backward_plain_group_norm_ms=recompute["group_norm"],
+                plain_attention_share_of_backward=(
+                    recompute["attention"] / split["backward"]
+                    if split["backward"] else None))
+
+
+def run_train_stage2(torch) -> dict:
+    """Stage 2 at the JAX defaults (batch 2, accum 16, remat on),
+    ema_update_interval 1: two optimizer steps, the second boundary under
+    torch.profiler (its device time by phase). Every trainable tensor
+    changes at each boundary and at no other micro-step; the EMA shadow
+    moves at each boundary only."""
+    batch, accum, remat = STAGE2
+    state, step, vae = build_train(torch, 2, batch, accum, remat,
+                                   ema_interval=1)
+    n = len(state.trainable())
+    sums, ema_sums, ms, launches, metrics, split = run_train_micro_steps(
+        torch, "train_stage2", state, step, batch, 2 * accum,
+        (state.unet, state.denoise_encoder, vae), profile_at=2 * accum - 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = changed_at(sums)
+    want = ([0] * (accum - 1) + [n]) * 2
+    if changed != want:
+        fail(f"train_stage2: tensors changed per micro-step {changed}, "
+             f"expected all {n} at each boundary only")
+    ema_changed = changed_at(ema_sums)
+    if ema_changed[accum - 1] == 0 or ema_changed[2 * accum - 1] == 0 or \
+            any(c for i, c in enumerate(ema_changed)
+                if i not in (accum - 1, 2 * accum - 1)):
+        fail(f"train_stage2: EMA tensors changed per micro-step {ema_changed}")
+    if state.ema.step != 2 or state.opt.gradient_step != 2:
+        fail(f"train_stage2: EMA step {state.ema.step}, optimizer step "
+             f"{state.opt.gradient_step}")
+    per_step = {k: v // (2 * accum) for k, v in launches.items()}
+    row = dict(check="train_stage2", batch=batch, grad_accum=accum,
+               remat=remat, res=TRAIN_RES, trainable_tensors=n,
+               changed_per_micro_step=changed, ema_changed=ema_changed,
+               ms_per_micro_step=ms, ms_median=median(ms[1:]),
+               first_boundary_ms=ms[accum - 1], peak_gib=peak,
+               launches_per_micro_step=per_step, profile=split,
+               loss=[m["loss"] for m in metrics][:4])
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def state_checksums(torch, state) -> dict:
+    """Checksums of everything a checkpoint holds."""
+    params = [t for m in (state.unet, state.denoise_encoder)
+              for t in m.state_dict().values()]
+    acc = [p.grad for p in state.trainable().values() if p.grad is not None]
+    return dict(params=checksums(torch, params),
+                mu=checksums(torch, list(state.opt.mu.values())),
+                nu=checksums(torch, list(state.opt.nu.values())),
+                acc=checksums(torch, acc) if acc else None,
+                ema=checksums(torch, list(state.ema.params.values())),
+                counts=(state.step, state.opt.mini_step,
+                        state.opt.gradient_step, state.ema.step))
+
+
+def same_checksums(torch, a: dict, b: dict) -> bool:
+    return all((a[k] is None and b[k] is None) or
+               (a[k] is not None and b[k] is not None and
+                (a[k] == b[k] if k == "counts" else torch.equal(a[k], b[k])))
+               for k in a)
+
+
+def write_train_pngs(root: str, n: int) -> dict:
+    """`n` seeded HR / LR PNG pairs (640x768 and 160x192, a 4x pair),
+    captions, and two validation PNGs, under `root`."""
+    import numpy as np
+
+    from faithdiff_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(3)
+    dirs = {k: os.path.join(root, k) for k in ("hr", "lr", "cap", "val")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        lr = rng.integers(0, 256, (160, 192, 3), dtype=np.uint8)
+        write_png(os.path.join(dirs["lr"], f"p{i}.png"), lr)
+        write_png(os.path.join(dirs["hr"], f"p{i}.png"),
+                  np.repeat(np.repeat(lr, 4, 0), 4, 1))
+        with open(os.path.join(dirs["cap"], f"p{i}.txt"), "w") as f:
+            f.write(f"The image shows a red house number {i}. A cat sits. "
+                    "The sky is blue.")
+    for i in range(2):
+        write_png(os.path.join(dirs["val"], f"v{i}.png"),
+                  rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+    return dirs
+
+
+def run_cli_train(torch, root: str) -> dict:
+    """`cli.main(["train", "--synthetic_data", ...])` at full width (stage
+    1): 4 micro-steps with checkpoints every 2 (keeping 2) and a log row
+    each, then `--resume_from_checkpoint` to 6: the kept directories, the
+    metrics rows, the restored state equal in every checksum to the saved
+    one, the steps continuing. Then a run over seeded PNG pairs with
+    captions and one validation strip."""
+    import numpy as np
+
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.training import checkpoint as C
+    from faithdiff_tpu_torch.training import runner
+    from faithdiff_tpu_torch.training.logging import read_metrics
+    from faithdiff_tpu_torch.utils.png import read_png
+
+    out_dir = os.path.join(root, "run")
+    common = ["--output_dir", out_dir, "--resolution", str(TRAIN_RES),
+              "--train_batch_size", "2", "--grad_accum", "2",
+              "--checkpointing_steps", "2", "--checkpoints_total_limit", "2",
+              "--log_every", "1", "--lr_warmup_steps", "0"]
+    kept, restored = [], []
+    main, restore = runner.main, C.CheckpointManager.restore
+
+    def keep_main(argv):
+        kept.append(main(argv))
+        return kept[-1]
+
+    def watch_restore(self, state, *a, **k):
+        out = restore(self, state, *a, **k)
+        restored.append(state_checksums(torch, state))
+        return out
+
+    runner.main, C.CheckpointManager.restore = keep_main, watch_restore
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        if cli.main(["train", "--synthetic_data", "--max_train_steps", "4"]
+                    + common) != 0:
+            fail("cli_train: train returned nonzero")
+        times["train_4_s"] = time.perf_counter() - t0
+        saved = state_checksums(torch, kept.pop())
+        dirs = sorted(d for d in os.listdir(out_dir) if d.isdigit())
+        if dirs != ["2", "4"]:
+            fail(f"cli_train: checkpoints {dirs}, expected ['2', '4']")
+        t0 = time.perf_counter()
+        if cli.main(["train", "--synthetic_data", "--max_train_steps", "6",
+                     "--resume_from_checkpoint", "1"] + common) != 0:
+            fail("cli_train: resumed train returned nonzero")
+        times["resume_to_6_s"] = time.perf_counter() - t0
+        final = kept.pop()
+        if len(restored) != 1 or not same_checksums(torch, saved, restored[0]):
+            fail("cli_train: the restored state differs from the saved one")
+        if final.step != 6:
+            fail(f"cli_train: resumed run ended at step {final.step}")
+        del final
+        rows = read_metrics(os.path.join(out_dir, "logs"))
+        if [r["step"] for r in rows] != [1, 2, 3, 4, 5, 6] or not all(
+                math.isfinite(r["train_loss"]) for r in rows):
+            fail(f"cli_train: metrics rows {rows}")
+        dirs = sorted(d for d in os.listdir(out_dir) if d.isdigit())
+        if dirs != ["4", "6"]:
+            fail(f"cli_train: checkpoints after resume {dirs}")
+        shutil.rmtree(out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        data = write_train_pngs(os.path.join(root, "data"), 4)
+        data_dir = os.path.join(root, "data_run")
+        t0 = time.perf_counter()
+        if cli.main(["train", "--output_dir", data_dir, "--hr_dir", data["hr"],
+                     "--lr_dir", data["lr"], "--caption_dir", data["cap"],
+                     "--val_dir", data["val"], "--validation_steps", "1",
+                     "--max_train_steps", "1", "--train_batch_size", "2",
+                     "--grad_accum", "1", "--log_every", "1",
+                     "--lr_warmup_steps", "0", "--resolution",
+                     str(TRAIN_RES)]) != 0:
+            fail("cli_train: dataset run returned nonzero")
+        times["dataset_run_s"] = time.perf_counter() - t0
+        kept.clear()
+        strip = read_png(os.path.join(data_dir, "validation", "step_1.png"))
+        if strip.shape != (TRAIN_RES, 2 * TRAIN_RES, 3):
+            fail(f"cli_train: validation strip {strip.shape}")
+        rows = read_metrics(os.path.join(data_dir, "logs"))
+        if [r["step"] for r in rows] != [1]:
+            fail(f"cli_train: dataset run rows {rows}")
+    finally:
+        runner.main, C.CheckpointManager.restore = main, restore
+        kept.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    row = dict(check="cli_train", strip_shape=list(strip.shape),
+               strip_mean=float(np.asarray(strip, np.float32).mean()), **times)
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "faithdiff_tpu_torch")):
         print("chip_smoke: faithdiff_tpu_torch/ is not beside this script",
@@ -2500,13 +3134,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("bsrnet"):
         check_bsrnet(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with phase("train_autograd"):
+        grads = check_train_autograd(torch)
+    bad = [r for r in grads if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} autograd checks out of tolerance: {bad}")
+    with phase("train_stage1"):
+        stage1 = run_train_stage1(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("train_stage2"):
+        stage2 = run_train_stage2(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the CLI's checkpoints and PNGs go whether the phase passes or fails
+    train_root = os.path.join(_build.BUILD_DIR, f"train_cli_{os.getpid()}")
+    os.makedirs(train_root, exist_ok=True)
+    try:
+        with phase("cli_train"):
+            run_cli_train(torch, train_root)
+    finally:
+        shutil.rmtree(train_root, ignore_errors=True)
 
     def entry(name, row, source, replaces, launches=counts):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launches[name], max_abs_err=row["max_abs_err"],
                     ms=row["ms"], plain_ms=row["plain_ms"],
                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=row["library_ms"])
+                    library_ms=row["library_ms"],
+                    train_launches_per_micro_step={
+                        "stage1": stage1["launches_per_micro_step"][name],
+                        "stage2": stage2["launches_per_micro_step"][name]})
 
     kernels = [
         entry("flash_attention_fwd", attn[ATTN_REPORT],

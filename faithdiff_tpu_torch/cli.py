@@ -4,6 +4,8 @@
         [--checkpoint_dir ckpts/] [--tokenizer_dir sdxl/] [--json_dir caps/] \\
         [--negative_prompt TEXT] [--canvas_resume_dir resume/] \\
         [--upscale 2] [--use_tile_vae] [--hdr 0.5]
+    python -m faithdiff_tpu_torch.cli train --output_dir run/ \\
+        [--stage 1|2] [--synthetic_data | --hr_dir HR --lr_dir LR] [...]
     python -m faithdiff_tpu_torch.cli embed --caption_dir caps/ \\
         --save_dir embeds/ [--tokenizer_dir sdxl/] [--text_encoder_dir T]
     python -m faithdiff_tpu_torch.cli caption --img_dir in/ --save_dir caps/ \\
@@ -33,9 +35,13 @@ captions `restore --json_dir` reads. `--use_bsrnet` is parsed and not
 applied, as in the JAX CLI (a warning says so). Every command runs on the
 CUDA card unless `--device cpu` is given.
 
+`train` runs `training/runner.main` (the two-stage FaithDiff trainer;
+its flags are the JAX runner's, see that module).
+
 What the port does not serve yet raises NotImplementedError naming its
-ROADMAP item: the `train` and `metrics` commands, `--use_fp8`,
-`--tile_devices` above 1 and inputs other than PNG.
+ROADMAP item: the `metrics` command, `--use_fp8`, `--tile_devices` above
+1, inputs other than PNG, and in `train` `--dtype float32` on the card
+and more than one process.
 """
 from __future__ import annotations
 
@@ -63,7 +69,6 @@ from .utils.safetensors import load_dir
 
 _RESTORE_OPTIONS = "ROADMAP §1.1 (restore pipeline options)"
 _NOT_YET = {
-    "train": "ROADMAP §1.4 (training and data)",
     "metrics": "ROADMAP §1.6 (eval)",
 }
 # tiles per UNet call of the restore: the chunk of the lowest UNet time per
@@ -366,6 +371,13 @@ def cmd_caption(argv) -> int:
     return 0
 
 
+def cmd_train(argv) -> int:
+    from .training import runner
+
+    runner.main(argv)
+    return 0
+
+
 def _not_yet(command: str):
     def run(argv):
         raise NotImplementedError(f"{command}: {_NOT_YET[command]}")
@@ -373,7 +385,7 @@ def _not_yet(command: str):
 
 
 COMMANDS = {"restore": cmd_restore, "caption": cmd_caption,
-            "embed": cmd_embed, "train": _not_yet("train"),
+            "embed": cmd_embed, "train": cmd_train,
             "metrics": _not_yet("metrics")}
 
 

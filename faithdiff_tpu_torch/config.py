@@ -1,8 +1,8 @@
-"""Configuration dataclasses of the restore path.
+"""Configuration dataclasses of the restore and training paths.
 
 The port's own copy of the fields of `faithdiff_tpu/config.py` that the
-UNet, VAE, denoise encoder, CLIP text towers, schedulers and pipeline
-read. The defaults are
+UNet, VAE, denoise encoder, CLIP text towers, schedulers, pipeline and
+trainer read. The defaults are
 the full-width SDXL / FaithDiff configuration; `tiny_*_config` are the test
 sizes (same topology, small widths).
 """
@@ -48,6 +48,10 @@ class UNetConfig:
     upcast_attention: bool = False
     with_faithdiff_extension: bool = True
     condition_channels: int = 512           # denoise_encoder output channels
+    # gradient checkpointing of the fusion stack and of each down / mid /
+    # up block in training (`torch.utils.checkpoint`); no forward value
+    # changes
+    remat: bool = False
     info_transformer_layers: int = 2
     info_transformer_dim: int = 640         # 2 * block_out_channels[0]
     info_transformer_heads: int = 8
@@ -88,6 +92,9 @@ class DenoiseEncoderConfig:
     norm_num_groups: int = 32
     act_fn: str = "silu"
     mid_block_add_attention: bool = True
+    # gradient checkpointing in training: the down blocks per ResNet, the
+    # mid block whole
+    remat: bool = False
     tile_sample_min_size: int = 1024
     tile_overlap_factor: float = 0.25
 
@@ -159,6 +166,37 @@ class PipelineConfig:
     # the models' tile_sample_min_size, blended at the seams; the color
     # fix then streams by windows (the CLI's --use_tile_vae)
     use_tiled_vae: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Two-stage training recipe (the reference's `train_stage_1.sh` /
+    `train_stage_2.sh`), the fields and defaults of the JAX package's."""
+
+    resolution: int = 512
+    batch_size_per_device: int = 16
+    # micro-batch gradient accumulation: gradients average over
+    # `grad_accum` steps, the optimizer applies at every grad_accum-th
+    grad_accum: int = 1
+    learning_rate: float = 5e-5
+    vis_learning_rate: float = 5e-6  # stage-2 denoise_encoder LR
+    lr_scheduler: str = "cosine"
+    lr_warmup_steps: int = 300
+    max_train_steps: int = 6000
+    noise_offset: float = 0.02
+    max_grad_norm: float = 1.0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    ema_decay: float = 0.9999
+    ema_update_interval: int = 100
+    checkpointing_steps: int = 2000
+    checkpoints_total_limit: int = 5
+    validation_steps: int = 500
+    caption_dropout: float = 0.2
+    stage: int = 1
+    seed: int = 42
 
 
 def tiny_unet_config() -> UNetConfig:

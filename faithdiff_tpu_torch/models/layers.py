@@ -12,8 +12,20 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.groupnorm import group_norm
+
+
+def maybe_checkpoint(enabled: bool, fn, *args):
+    """`fn(*args)`, under gradient checkpointing when `enabled` and autograd
+    records (the flax `nn.remat` of the JAX models): the backward recomputes
+    `fn`'s forward instead of keeping its activations. Values are the
+    same either way."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,

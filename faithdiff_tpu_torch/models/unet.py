@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from ..config import UNetConfig
 from .adapters import (ConditionEmbedding, ResidualAttentionBlock,
                        information_fusion)
-from .layers import GroupNorm, TimestepEmbedding, get_timestep_embedding
+from .layers import (GroupNorm, TimestepEmbedding, get_timestep_embedding,
+                     maybe_checkpoint)
 from .unet_blocks import (CrossAttnDownBlock2D, CrossAttnUpBlock2D,
                           DownBlock2D, UNetMidBlock2DCrossAttn, UpBlock2D)
 
@@ -127,23 +128,29 @@ class UNet2DConditionModel(nn.Module):
         sample = self.conv_in(sample.to(dtype))
         if cfg.with_faithdiff_extension and input_embedding is not None:
             cond = self.condition_embedding(input_embedding.to(dtype))
-            feat_alpha = information_fusion(
+            # under remat the fusion stack and each block are checkpointed,
+            # as the JAX model's nn.remat does
+            feat_alpha = maybe_checkpoint(
+                cfg.remat, information_fusion,
                 self.information_transformer_layes, self.spatial_ch_projs,
                 sample, cond, fusion_group_size)
             sample = sample + feat_alpha if add_sample else feat_alpha
 
         down_res = [sample]
         for block in self.down_blocks:
-            sample, res = block(sample, emb, context)
+            sample, res = maybe_checkpoint(cfg.remat, block, sample, emb,
+                                           context)
             down_res += res
 
-        sample = self.mid_block(sample, emb, context)
+        sample = maybe_checkpoint(cfg.remat, self.mid_block, sample, emb,
+                                  context)
 
         n_layers = cfg.layers_per_block + 1
         for block in self.up_blocks:
             res = down_res[-n_layers:]
             down_res = down_res[:-n_layers]
             upsample_size = down_res[-1].shape[2:] if down_res else None
-            sample = block(sample, res, emb, context, upsample_size)
+            sample = maybe_checkpoint(cfg.remat, block, sample, res, emb,
+                                      context, upsample_size)
 
         return self.conv_out(self.conv_norm_out(sample))

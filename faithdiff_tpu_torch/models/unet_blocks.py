@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attention import multi_head_attention
-from .layers import GroupNorm
+from .layers import GroupNorm, maybe_checkpoint
 from .resnet import Downsample2D, ResnetBlock2D, Upsample2D
 from .transformer2d import Transformer2DModel
 
@@ -154,10 +154,15 @@ class CrossAttnUpBlock2D(nn.Module):
 # ---------------------------------------------------------------------------
 
 class DownEncoderBlock2D(nn.Module):
+    """`remat` checkpoints each ResNet on its own (the JAX block's
+    per-ResNet remat: a whole block's recompute would keep both ResNets'
+    temporaries live at once)."""
+
     def __init__(self, in_channels: int, out_channels: int,
                  num_layers: int = 2, add_downsample: bool = True,
-                 groups: int = 32, eps: float = 1e-6):
+                 groups: int = 32, eps: float = 1e-6, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
                           out_channels, None, groups, eps)
@@ -168,7 +173,7 @@ class DownEncoderBlock2D(nn.Module):
 
     def forward(self, x):
         for resnet in self.resnets:
-            x = resnet(x)
+            x = maybe_checkpoint(self.remat, resnet, x)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
         return x

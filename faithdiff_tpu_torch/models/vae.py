@@ -8,27 +8,31 @@ import torch
 import torch.nn as nn
 
 from ..config import DenoiseEncoderConfig, VAEConfig
-from .layers import GroupNorm
+from .layers import GroupNorm, maybe_checkpoint
 from .unet_blocks import DownEncoderBlock2D, UNetMidBlock2D, UpDecoderBlock2D
 
 
 class Encoder(nn.Module):
     """VAE encoder trunk. `with_head=False` is the FaithDiff denoise
-    encoder, which stops at the mid-block output (512 ch at 1/8 res)."""
+    encoder, which stops at the mid-block output (512 ch at 1/8 res).
+    `remat` checkpoints the down blocks per ResNet and the mid block whole
+    in training."""
 
     def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
                  layers_per_block: int = 2, latent_channels: int = 4,
                  norm_num_groups: int = 32, in_channels: int = 3,
-                 with_head: bool = True, mid_block_add_attention: bool = True):
+                 with_head: bool = True, mid_block_add_attention: bool = True,
+                 remat: bool = False):
         super().__init__()
         ch = list(block_out_channels)
+        self.remat = remat
         self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
         cin = ch[0]
         for i, cout in enumerate(ch):
             self.down_blocks.append(DownEncoderBlock2D(
                 cin, cout, layers_per_block, add_downsample=i < len(ch) - 1,
-                groups=norm_num_groups))
+                groups=norm_num_groups, remat=remat))
             cin = cout
         self.mid_block = UNetMidBlock2D(cin, mid_block_add_attention,
                                         norm_num_groups)
@@ -41,7 +45,7 @@ class Encoder(nn.Module):
         x = self.conv_in(x.to(self.conv_in.weight.dtype))
         for block in self.down_blocks:
             x = block(x)
-        x = self.mid_block(x)
+        x = maybe_checkpoint(self.remat, self.mid_block, x)
         if self.with_head:
             x = self.conv_out(self.conv_norm_out(x))
         return x
@@ -113,16 +117,18 @@ def posterior_noise(shape, generator: Optional[torch.Generator],
 
 
 def sample_from_moments(moments: torch.Tensor,
-                        generator: Optional[torch.Generator] = None
-                        ) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DiagonalGaussianDistribution.sample(): mean + std * N(0, 1) in fp32,
-    cast back to the moments' dtype. generator=None -> the mode."""
+    cast back to the moments' dtype; the N(0, 1) draw is `noise` when
+    given, else drawn from `generator`. Neither -> the mode."""
     mean, logvar = moments.chunk(2, dim=1)
-    if generator is None:
+    if generator is None and noise is None:
         return mean
     std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0).float())
-    noise = posterior_noise(mean.shape, generator, moments.device)
-    return (mean.float() + std * noise).to(moments.dtype)
+    if noise is None:
+        noise = posterior_noise(mean.shape, generator, moments.device)
+    return (mean.float() + std * noise.to(moments.device)).to(moments.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -223,5 +229,6 @@ class DenoiseEncoder(Encoder):
         super().__init__(config.block_out_channels, config.layers_per_block,
                          norm_num_groups=config.norm_num_groups,
                          in_channels=config.in_channels, with_head=False,
-                         mid_block_add_attention=config.mid_block_add_attention)
+                         mid_block_add_attention=config.mid_block_add_attention,
+                         remat=config.remat)
         self.config = config

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from .autograd import wide, with_plain_backward
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
@@ -40,21 +41,38 @@ BLOCK_K = 128
 PANEL_COLS = 64
 
 
+def _without_autocast(fn):
+    """Run a plain attention in its inputs' dtypes with fp32 math, also
+    inside an autocast region (which would round its logits to bf16). The
+    Functions' backward turns autocast off itself; this is for the forward
+    calls a training step makes outside them (attention below 1024 tokens,
+    cross-attention, the fusion adapters)."""
+    @functools.wraps(fn)
+    def run(q, *args, **kwargs):
+        if torch.is_autocast_enabled(q.device.type):
+            with torch.autocast(q.device.type, enabled=False):
+                return fn(q, *args, **kwargs)
+        return fn(q, *args, **kwargs)
+    return run
+
+
+@_without_autocast
 def attention_reference(q, k, v, scale: float, causal: bool = False):
     """Plain attention (`_xla_attention`): fp32 logits, fp32 softmax, probs
     cast to v's dtype before the weighted sum. The causal mask is aligned
     bottom-right, `tril(ones, k_len - q_len)`, as in the JAX reference."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(wide(q), wide(k).transpose(-1, -2)) * scale
     if causal:
         q_len, k_len = logits.shape[-2], logits.shape[-1]
         mask = torch.ones((q_len, k_len), dtype=torch.bool,
                           device=q.device).tril(k_len - q_len)
         logits = logits.masked_fill(~mask, DEFAULT_MASK_VALUE)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    out = torch.matmul(wide(probs.to(v.dtype)), wide(v))
     return out.to(q.dtype)
 
 
+@_without_autocast
 def chunked_attention(q, k, v, scale: float, chunk: int = 1024):
     """Memory-bounded attention (`_chunked_xla_attention`): a loop over KV
     chunks with a running online softmax, all in fp32. Non-causal."""
@@ -169,11 +187,28 @@ def _launch(lib, fn_name: str, argtypes, args, device) -> None:
 
 
 def flash_attention(q, k, v, scale: float, causal: bool = False):
-    """Flash-attention forward. A CUDA tensor launches the kernel (bf16,
-    head dim 64 or 128, contiguous ``[B, H, S, d]``) and raises on anything
-    the kernel does not take; a CPU tensor computes `attention_reference`."""
+    """Flash attention. A CUDA tensor launches the kernel (bf16, head dim
+    64 or 128, contiguous ``[B, H, S, d]``) and raises on anything the
+    kernel does not take; under autograd its gradient is that of
+    `attention_reference` (`flash_attention_function`). A CPU tensor
+    computes `attention_reference`."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, causal)
+    return flash_attention_function(q, k, v, scale, causal)
+
+
+def flash_attention_function(q, k, v, scale: float, causal: bool = False, *,
+                             forward=None):
+    """`forward` (default: the kernel launch) with the backward of
+    `attention_reference`, as JAX's `custom_vjp` of `_flash_attention`.
+    Tests pass `forward=attention_reference` to run the wiring without a
+    card."""
+    return with_plain_backward(forward or _flash_attention_launch,
+                               attention_reference, q, k, v, scale=scale,
+                               causal=causal)
+
+
+def _flash_attention_launch(q, k, v, scale: float, causal: bool):
     _check_kernel_inputs("flash_attention", q, (("q", q), ("k", k), ("v", v)))
     b, h, q_len, d = q.shape
     kv_len = k.shape[2]
@@ -306,6 +341,7 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
     return attention_reference(q, k, v, scale, causal)
 
 
+@_without_autocast
 def einsum_bsnd(q, k, v, heads: int, scale: float):
     """Plain packed-layout attention (`_einsum_bsnd`): q ``[b, sq, n*d]``,
     k/v ``[b, skv, n*d]``; fp32 logits and softmax, probs cast to v's dtype
@@ -316,9 +352,9 @@ def einsum_bsnd(q, k, v, heads: int, scale: float):
     q4 = q.reshape(b, sq, heads, d)
     k4 = k.reshape(b, skv, heads, d)
     v4 = v.reshape(b, skv, heads, d)
-    s = torch.einsum("bqnd,bknd->bnqk", q4.float(), k4.float()) * scale
+    s = torch.einsum("bqnd,bknd->bnqk", wide(q4), wide(k4)) * scale
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), v4.float())
+    out = torch.einsum("bnqk,bknd->bqnd", wide(p.to(v.dtype)), wide(v4))
     return out.to(q.dtype).reshape(b, sq, f)
 
 
@@ -338,9 +374,23 @@ def flash_attention_packed(q, k, v, heads: int, scale: float):
     ``[b, skv, n*d]`` -> ``[b, sq, n*d]``. A CUDA tensor launches the kernel
     (bf16, d = 64 or 128, packed rows as `_check_packed_strides` describes) and
     raises on anything it does not take; a CPU tensor computes
-    `einsum_bsnd`."""
+    `einsum_bsnd`. Under autograd the gradient is that of `einsum_bsnd`
+    (`flash_attention_packed_function`)."""
     if q.device.type == "cpu":
         return einsum_bsnd(q, k, v, heads, scale)
+    return flash_attention_packed_function(q, k, v, heads, scale)
+
+
+def flash_attention_packed_function(q, k, v, heads: int, scale: float, *,
+                                    forward=None):
+    """`forward` (default: the kernel launch) with the backward of
+    `einsum_bsnd`, as JAX's `custom_vjp` of `_flash_bsnd`. Tests pass
+    `forward=einsum_bsnd`."""
+    return with_plain_backward(forward or _flash_packed_launch, einsum_bsnd,
+                               q, k, v, heads=heads, scale=scale)
+
+
+def _flash_packed_launch(q, k, v, heads: int, scale: float):
     _check_kernel_inputs("flash_attention_packed", q,
                          (("q", q), ("k", k), ("v", v)))
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .autograd import wide, with_plain_backward
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # two-pass route: elements per stats block (at least) and per apply block
@@ -48,9 +49,9 @@ def group_stats_reference(x, num_groups: int, add=None):
     """Plain version of pass 1: fp32 per-(batch, group) sums of v and v^2,
     v = x (+ add), each [B, G]."""
     b, c = x.shape[:2]
-    x32 = x.float()
+    x32 = wide(x)
     if add is not None:
-        x32 = x32 + add.float().reshape((b, c) + (1,) * (x.ndim - 2))
+        x32 = x32 + wide(add).reshape((b, c) + (1,) * (x.ndim - 2))
     dims = tuple(range(2, x.ndim))
     s1 = x32.sum(dim=dims).reshape(b, num_groups, -1).sum(-1)
     s2 = x32.square().sum(dim=dims).reshape(b, num_groups, -1).sum(-1)
@@ -68,11 +69,11 @@ def group_apply_reference(x, gs1, gs2, scale, bias, num_groups: int,
     mean = gs1 / n
     var = torch.clamp(gs2 / n - mean.square(), min=0.0)
     rstd = torch.rsqrt(var + epsilon)
-    es = rstd.repeat_interleave(cpg, dim=-1) * scale.float()[None]
-    eb = bias.float()[None] - mean.repeat_interleave(cpg, dim=-1) * es
-    x32 = x.float()
+    es = rstd.repeat_interleave(cpg, dim=-1) * wide(scale)[None]
+    eb = wide(bias)[None] - mean.repeat_interleave(cpg, dim=-1) * es
+    x32 = wide(x)
     if add is not None:
-        x32 = x32 + add.float().reshape(bshape)
+        x32 = x32 + wide(add).reshape(bshape)
     y = x32 * es.reshape(bshape) + eb.reshape(bshape)
     if act == "silu":
         y = F.silu(y)
@@ -378,10 +379,34 @@ def group_norm(x, scale, bias, num_groups: int = 32, epsilon: float = 1e-5,
     """GroupNorm over ``[B, C, *spatial]``. `add` ([B, C]) is folded in
     before the statistics (the ResNet time-embedding injection); `act`
     "silu" is applied after the affine. CUDA tensors run the kernels of
-    the plan's route, CPU tensors the plain version."""
+    the plan's route, CPU tensors the plain version. Under autograd the
+    kernels' gradient is that of `group_norm_reference`
+    (`group_norm_function`)."""
     if x.device.type == "cpu":
         return group_norm_reference(x, scale, bias, num_groups, epsilon, act,
                                     add)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: unsupported device {x.device}")
+    return group_norm_function(x, scale, bias, num_groups, epsilon, act, add)
+
+
+def group_norm_plain(x, scale, bias, add, *, num_groups, epsilon, act):
+    """`group_norm_reference` with the tensors first, as
+    `group_norm_function` calls its forward."""
+    return group_norm_reference(x, scale, bias, num_groups, epsilon, act, add)
+
+
+def _group_norm_launch(x, scale, bias, add, *, num_groups, epsilon, act):
     return GroupNormLaunch(x, scale, bias, num_groups, epsilon, act, add).run()
+
+
+def group_norm_function(x, scale, bias, num_groups: int = 32,
+                        epsilon: float = 1e-5, act: Optional[str] = None,
+                        add=None, *, forward=None):
+    """`forward` (default: the kernels of the plan's route) with the
+    backward of `group_norm_reference` for x, scale, bias and add, as JAX's
+    `custom_vjp` of `fused_group_norm`. Tests pass
+    `forward=group_norm_plain`."""
+    return with_plain_backward(forward or _group_norm_launch,
+                               group_norm_plain, x, scale, bias, add,
+                               num_groups=num_groups, epsilon=epsilon, act=act)

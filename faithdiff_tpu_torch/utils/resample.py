@@ -1,13 +1,19 @@
-"""Pillow's BICUBIC and LANCZOS resampling of uint8 images, in numpy.
+"""Pillow's NEAREST, BILINEAR, BICUBIC and LANCZOS resampling of uint8
+images, in numpy.
 
 The port's copy of `libImaging/Resample.c` for 8-bit images, so that
-`resize_bicubic` and `resize_lanczos` give what
-`Image.resize(size, Image.BICUBIC / Image.LANCZOS)` gives, bit for bit: a
+`resize_bilinear`, `resize_bicubic` and `resize_lanczos` give what
+`Image.resize(size, Image.BILINEAR / BICUBIC / LANCZOS)` gives, bit for
+bit: a
 separable convolution, the horizontal pass first and each pass rounding
 to uint8. An output pixel's taps are the filter at its input pixels'
 centres (widened by the scale when shrinking), normalised by their
 sequential sum, then held in fixed point with 22 fractional bits and
 rounded half away from zero. A pass whose axis keeps its size is skipped.
+`resize_nearest` is Pillow's NEAREST, which goes through its affine
+scaler (`ImagingScaleAffine` of `libImaging/Geometry.c`) instead: output
+pixel x takes input pixel int(x0 + (x + 1/2) * in/out), the position
+advanced by in/out a pixel in double precision.
 """
 from __future__ import annotations
 
@@ -17,6 +23,11 @@ from typing import Callable, Tuple
 import numpy as np
 
 _PRECISION_BITS = 22
+
+
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
 
 
 def _bicubic(x: float) -> float:
@@ -44,7 +55,8 @@ def _lanczos(x: float) -> float:
 
 
 # filter -> support at scale 1
-_FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+_FILTERS = {"bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0),
+            "lanczos": (_lanczos, 3.0)}
 
 
 def _coeffs(in_size: int, out_size: int, fn: Callable[[float], float],
@@ -113,3 +125,32 @@ def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """uint8 HW or HWC image -> (width, height) `size`, as PIL's
     `Image.resize(size, Image.LANCZOS)` gives it."""
     return _resize(img, size, "lanczos")
+
+
+def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """uint8 HW or HWC image -> (width, height) `size`, as PIL's
+    `Image.resize(size, Image.BILINEAR)` gives it."""
+    return _resize(img, size, "bilinear")
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    step = in_size / out_size
+    pos = step * 0.5
+    idx = np.empty(out_size, np.int64)
+    for x in range(out_size):
+        idx[x] = int(pos)
+        pos += step
+    return idx
+
+
+def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """uint8 HW or HWC image -> (width, height) `size`, as PIL's
+    `Image.resize(size, Image.NEAREST)` gives it."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_nearest: {img.dtype} image, takes uint8")
+    out_w, out_h = size
+    if out_w < 1 or out_h < 1:
+        raise ValueError(f"resize_nearest: size {size}")
+    rows = _nearest_index(img.shape[0], out_h)
+    cols = _nearest_index(img.shape[1], out_w)
+    return np.ascontiguousarray(img[rows][:, cols])

@@ -663,3 +663,136 @@ def test_int8_captioner_on_the_card_matches_the_cpu(cuda):
             assert bool((err <= 5e-2 * (1 + ref.abs())).all()), float(err.max())
     torch.cuda.synchronize()
     assert not _build.launches.get("nf4_matmul")
+
+
+@pytest.mark.parametrize("kind", ["flash", "flash_causal", "packed",
+                                  "group_norm_fused", "group_norm_two_pass"])
+def test_autograd_functions_match_plain_on_card(cuda, kind):
+    """Each entry point under autograd on the card: one kernel launch in the
+    forward, bitwise the bare kernel's output and within 1e-2 + 8e-3*|ref|
+    of the plain version, none in the backward, and every gradient equal
+    in every bit to autograd over the plain version (which is what the
+    Function's backward runs, on the same inputs with autocast off)."""
+    from faithdiff_tpu_torch.ops import attention as A
+    from faithdiff_tpu_torch.ops import groupnorm as G
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def leaf(shape, dtype=torch.bfloat16, offset=0.0):
+        return (torch.randn(shape, generator=g, device=cuda) + offset).to(
+            dtype).requires_grad_(True)
+
+    if kind.startswith("flash"):
+        causal = kind == "flash_causal"
+        inputs = [leaf((2, 3, 1024, 64)) for _ in range(3)]
+        entry = lambda q, k, v: A.flash_attention(q, k, v, 0.125, causal)  # noqa: E731
+        bare = lambda q, k, v: A._flash_attention_launch(q, k, v, 0.125, causal)  # noqa: E731
+        plain = lambda q, k, v: A.attention_reference(q, k, v, 0.125, causal)  # noqa: E731
+        counters = ("flash_attention_fwd",)
+    elif kind == "packed":
+        inputs = [leaf((2, 1024, 256)) for _ in range(3)]
+        entry = lambda q, k, v: A.flash_attention_packed(q, k, v, 4, 0.125)  # noqa: E731
+        bare = lambda q, k, v: A._flash_packed_launch(q, k, v, 4, 0.125)  # noqa: E731
+        plain = lambda q, k, v: A.einsum_bsnd(q, k, v, 4, 0.125)  # noqa: E731
+        counters = ("flash_attention_bsnd_fwd",)
+    else:
+        # the denoise encoder's first norm at 512 px outgrows a cluster
+        shape = (2, 64, 16, 16) if kind == "group_norm_fused" else (1, 128, 512, 512)
+        plan = G.plan_group_norm(shape, 2, 32)
+        assert plan.route == kind[len("group_norm_"):]
+        c = shape[1]
+        inputs = [leaf(shape, offset=0.5), leaf(c, torch.float32, 1.0),
+                  leaf(c, torch.float32), leaf(shape[:2])]
+        entry = lambda x, s, b, a: G.group_norm(x, s, b, 32, 1e-6, "silu", a)  # noqa: E731
+        bare = lambda x, s, b, a: G.GroupNormLaunch(x, s, b, 32, 1e-6, "silu", a).run()  # noqa: E731
+        plain = lambda x, s, b, a: G.group_norm_reference(x, s, b, 32, 1e-6, "silu", a)  # noqa: E731
+        counters = plan.counters
+    _build.launches.clear()
+    out = entry(*inputs)
+    torch.cuda.synchronize()
+    assert {c: _build.launches[c] for c in counters} == {c: 1 for c in counters}
+    with torch.no_grad():
+        assert torch.equal(out, bare(*inputs))
+    cot = torch.randn(out.shape, generator=g, device=cuda).to(out.dtype)
+    _build.launches.clear()
+    grads = torch.autograd.grad(out, inputs, cot)
+    torch.cuda.synchronize()
+    assert sum(_build.launches.values()) == 0
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    plain_out = plain(*leaves)
+    ref = plain_out.detach().float()
+    err = (out.detach().float() - ref).abs()
+    assert bool((err <= 1e-2 + 8e-3 * ref.abs()).all()), float(err.max())
+    refs = torch.autograd.grad(plain_out, leaves, cot)
+    for got, ref in zip(grads, refs):
+        assert torch.equal(got, ref), (got.float() - ref.float()).abs().max()
+
+
+def _relative_l2(got, ref) -> float:
+    return float((got.float().cpu() - ref).norm() / max(float(ref.norm()), 1e-12))
+
+
+def test_tiny_train_step_on_card_matches_cpu(cuda):
+    """One stage-2 micro-step of the tiny configs (grad_accum 2, so the
+    gradient stays in `.grad`), bf16 under autocast on the card against
+    fp32 on the CPU, same weights, batch and draws: loss within 2e-2 and
+    grad_norm within 5e-2 relative; the gradients within the bf16
+    tolerance that the same step in bf16 on the CPU sets: each tensor's
+    relative L2 error at most twice the CPU bf16 step's, + 0.05, and the
+    whole gradient's at most twice, + 0.02 (bf16 gradients of a random
+    tiny model are 18% off fp32 in L2 on the CPU, up to 33% for a tensor);
+    the GroupNorm kernels ran."""
+    from faithdiff_tpu_torch import config as C
+    from faithdiff_tpu_torch.models.unet import UNet2DConditionModel
+    from faithdiff_tpu_torch.models.vae import AutoencoderKL, DenoiseEncoder
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+    from faithdiff_tpu_torch.training.train import (draw_noise,
+                                                    init_train_state,
+                                                    make_train_step)
+
+    def build(device, dtype=None):
+        models = (UNet2DConditionModel(C.tiny_unet_config()),
+                  DenoiseEncoder(C.tiny_denoise_encoder_config()),
+                  AutoencoderKL(C.tiny_vae_config()))
+        gen = torch.Generator().manual_seed(0)
+        for m in models:
+            random_init_(m, gen)
+            m.to(device)
+        models[2].requires_grad_(False)
+        cfg = C.TrainConfig(stage=2, grad_accum=2, lr_warmup_steps=0)
+        state = init_train_state(cfg, models[0], models[1])
+        dtype = dtype or (torch.float32 if device == "cpu" else torch.bfloat16)
+        return state, make_train_step(*models, cfg, compute_dtype=dtype)
+
+    r = np.random.default_rng(0)
+    batch = {"hr": r.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32),
+             "lq": r.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32),
+             "prompt_embeds": r.standard_normal((2, 77, 64)).astype(np.float32),
+             "pooled_embeds": r.standard_normal((2, 64)).astype(np.float32),
+             "add_time_ids": np.zeros((2, 6), np.float32)}
+    draws = draw_noise(2, (2, 4, 8, 8), 1000, torch.Generator().manual_seed(1),
+                       "cpu")
+    cpu_state, cpu_step = build("cpu")
+    ref = cpu_step(cpu_state, batch, draws=draws)
+    bf16_state, bf16_step = build("cpu", torch.bfloat16)
+    bf16_step(bf16_state, batch, draws=draws)
+    card_state, card_step = build("cuda")
+    _build.launches.clear()
+    got = card_step(card_state, batch,
+                    draws={k: (v if k == "t" else v.to(cuda))
+                           for k, v in draws.items()})
+    torch.cuda.synchronize()
+    assert _build.launches["group_norm_fused"] > 0
+    assert abs(float(got["loss"]) - float(ref["loss"])) <= 2e-2 * float(ref["loss"])
+    assert abs(float(got["grad_norm"]) - float(ref["grad_norm"])) <= \
+        5e-2 * float(ref["grad_norm"])
+    refs = {n: p.grad for n, p in cpu_state.trainable().items()}
+    card = {n: p.grad for n, p in card_state.trainable().items()}
+    bf16 = {n: p.grad for n, p in bf16_state.trainable().items()}
+    flat = [torch.cat([d[n].float().cpu().flatten() for n in refs])
+            for d in (card, bf16, refs)]
+    assert _relative_l2(flat[0], flat[2]) <= \
+        2 * _relative_l2(flat[1], flat[2]) + 0.02
+    for name, ref_grad in refs.items():
+        err = _relative_l2(card[name], ref_grad)
+        assert err <= 2 * _relative_l2(bf16[name], ref_grad) + 0.05, (name, err)
