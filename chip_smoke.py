@@ -37,6 +37,17 @@
    (`transformer2d._BSND_ATTN`, as FAITHDIFF_BSND_ATTN=1 sets it), checks
    it and its launches, profiles its last UNet call, and holds that call
    on the packed path against the default path.
+5b+. `restore_fp8`: the same restore with `build_pipeline(use_fp8=True)`
+   on the same weights (the UNet's stored in fp8, each upcast where its
+   layer runs): the fp8 cast on the card at the values around e4m3fn's top
+   (NaN past 464, as JAX), the flash and GroupNorm launches the bf16
+   restore's, the upcasts a UNet call counted, the weight bytes in fp8
+   against bf16, and one UNet call equal in every bit to the same call of
+   a bf16 UNet holding the fp8 values upcast. `restore_karras`: the
+   restore with Karras sigmas, the sigmas and timesteps the CPU's.
+   `schedulers`: ancestral Euler (plain and Karras), DDIM (eta 0, 0.5)
+   and DDPM steps and the v target on a 4-tile latent batch on the card
+   against the CPU with the same noise.
 5b'. `cli_restore`: the restore pipeline's weights written in the
    reference's file layout (the SDXL UNet's safetensors file in bf16,
    FaithDiff.bin, the VAE's safetensors file) under
@@ -58,7 +69,12 @@
    with `--tokenizer_dir`, a caption JSON and `--negative_prompt` on
    `cli_restore`'s PNG: identical in every byte to the in-memory pipeline
    given the port's own encodes of the same texts, and unlike the
-   zero-embed output. The in-memory pipelines of the CLI phases run the
+   zero-embed output. `cli_restore_fp8`: `restore --use_fp8` on the same
+   converted weights and photo, identical in every byte to the in-memory
+   fp8 pipeline. `png_formats`: the photo as a 16-bit RGB and as an
+   Adam7-interlaced PNG (written by this script), each restored by the
+   CLI to a PNG identical in every byte to `cli_restore`'s output. The
+   in-memory pipelines of the CLI phases run the
    CLI's `TILE_CHUNK`. The weight files are deleted afterwards, also when
    a phase fails.
 5b''. `restore_large`: the same pipeline on a 2048x3072 uint8 image (a
@@ -122,8 +138,8 @@
    1024x1536 image (6 tiles -> 4096x6144), a 64x64 crop against fp32 on
    the CPU.
 9. Training (`cli.py train`). `train_autograd`: the three kernel entry
-   points under autograd in bf16 (flash [16,10,1024,64] and
-   [2,10,4096,64], packed [16,1024,640] with 10 heads, GroupNorm
+   points under autograd in bf16 (flash [16,10,1024,64], [2,10,4096,64]
+   and causal [2,40,1024,128], caption training's), packed [16,1024,640] with 10 heads, GroupNorm
    [16,320,64,64] + SiLU + add on the single-pass route and
    [2,128,512,512] + SiLU on the two-pass route): the forward equal in
    every bit to the bare kernel and within 1e-2 + 8e-3*|ref| of the plain
@@ -149,8 +165,22 @@
    checksum to the saved one, the steps continuing), then a run over
    seeded PNG pairs with captions and a validation strip; the files are
    deleted afterwards.
+9b. `degradation`: 10 seeded plans of `RealESRGANDegradation()` at its
+   defaults on batches of 16 GT crops at 512^2 (LQ [16, 128, 128, 3]):
+   ms a batch (median), peak GiB; then one plan on the card with TF32 off
+   against the CPU with the same draws: max and mean error and the share
+   of LQ values on another 8-bit level. `caption_train`: LLaVA-1.5-13B's widths and
+   40 layers (bf16 dense base), ViT-L/14-336 frozen, 2 sequences of 1024
+   tokens (576 image tokens): three "projector" steps and three LoRA
+   steps (rank 128, alpha 256 on the seven projections): finite losses,
+   frozen tensors bitwise still, every trainable tensor changed, the
+   projector step's grad_norm equal to the norm over every gradient (the
+   frozen LLaMA's too), 40 flash launches (causal, d = 128) a step; ms a
+   step and the peak. `jpeg_probe`: whether libjpeg and `jpeglib.h` exist
+   on the machine (information, not a check).
 10. Prints the card line, a JSON line listing every ported kernel (with
-   its launches per training micro-step of both stages), then a
+   its launches per training micro-step of both stages, and on the fp8
+   and Karras restores and a caption training step), then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
 
@@ -2414,11 +2444,13 @@ def check_bsrnet(torch) -> dict:
 
 TRAIN_RES = 512
 # flash BHSD: the stage-1 UNet self-attention at 32^2 latents (batch 16)
-# and a 4096-token case at the stage-2 batch; packed: the same 1024-token
+# and a 4096-token case at the stage-2 batch, and the causal d = 128 case
+# of caption training (2 sequences of 1024 tokens); packed: the same 1024-token
 # attention on the packed path; GroupNorm: a UNet ResNet norm at 64^2
 # latents (single pass) and the denoise encoder's first norm at 512 px
 # (two passes: its group outgrows a cluster)
-TRAIN_ATTN_SHAPES = [(16, 10, 1024, 64), (2, 10, 4096, 64)]
+TRAIN_ATTN_SHAPES = [((16, 10, 1024, 64), False), ((2, 10, 4096, 64), False),
+                     ((2, 40, 1024, 128), True)]
 TRAIN_PACKED = ((16, 1024, 640), 10)
 TRAIN_GN = [((16, 320, 64, 64), 1e-5, "silu", True, "fused"),
             ((2, 128, 512, 512), 1e-6, "silu", False, "two_pass")]
@@ -2495,12 +2527,14 @@ def check_train_autograd(torch):
         return row
 
     rows = []
-    for shape in TRAIN_ATTN_SHAPES:
+    for shape, causal in TRAIN_ATTN_SHAPES:
         q, k, v = (leaf(shape) for _ in range(3))
+        scale = shape[-1] ** -0.5
         rows.append(run(
-            "flash_attention", lambda q, k, v: A.flash_attention(q, k, v, 0.125),
-            lambda q, k, v: A._flash_attention_launch(q, k, v, 0.125, False),
-            lambda q, k, v: A.attention_reference(q, k, v, 0.125),
+            "flash_attention_causal" if causal else "flash_attention",
+            lambda q, k, v: A.flash_attention(q, k, v, scale, causal),
+            lambda q, k, v: A._flash_attention_launch(q, k, v, scale, causal),
+            lambda q, k, v: A.attention_reference(q, k, v, scale, causal),
             [q, k, v], ("flash_attention_fwd",)))
     shape, heads = TRAIN_PACKED
     q, k, v = (leaf(shape) for _ in range(3))
@@ -2552,10 +2586,12 @@ def nonzero_adapters_(torch, unet, seed: int) -> None:
 
 
 def checksums(torch, tensors):
-    """One int64 per fp32 tensor: the sum of its bit patterns, which any
-    change of a bit moves (barring an exact cancellation)."""
-    return torch.stack([t.detach().view(torch.int32).sum(dtype=torch.int64)
-                        for t in tensors]).cpu()
+    """One int64 per tensor: the sum of its bit patterns (as integers of
+    its element's width), which any change of a bit moves (barring an
+    exact cancellation)."""
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    return torch.stack([t.detach().view(view[t.element_size()])
+                        .sum(dtype=torch.int64) for t in tensors]).cpu()
 
 
 class TrainWatch:
@@ -3009,6 +3045,571 @@ def run_cli_train(torch, root: str) -> dict:
     print(json.dumps(row), flush=True)
     return row
 
+# ---------------------------------------------------------------------------
+# restore options: fp8 weights, Karras sigmas, 16-bit and interlaced PNG
+# input, the other schedulers' steps; the degradation engine; captioner
+# training; the JPEG probe
+# ---------------------------------------------------------------------------
+
+# bf16 values around e4m3fn's top: up to 464 the cast saturates at 448, past
+# it (and inf) JAX's cast gives NaN, which the port follows (torch's own
+# cast saturates); -0.0 and a subnormal keep their bits
+FP8_PROBE = [(0.5, 0.5), (-0.0, -0.0), (2.0 ** -9, 2.0 ** -9), (448.0, 448.0),
+             (460.0, 448.0), (464.0, 448.0), (466.0, math.nan),
+             (480.0, math.nan), (1e4, math.nan), (math.inf, math.nan),
+             (-466.0, math.nan)]
+# the steps of the other schedulers: a 4-tile latent batch, on the card
+# against the CPU with the same noise
+SCHED_SHAPE = (4, 4, 128, 128)
+SCHED_TOL = 1e-6                         # x (1 + max|cpu|)
+# the stage-1 trainer's batch of GT crops, the engine's defaults
+DEG_BATCH, DEG_RES, DEG_PLANS = 16, 512, 10
+# the card against the CPU on one plan, TF32 off: most LQ levels agree; a
+# level flips where fp32 sums in another order land an 8-bit rounding (or
+# a JPEG coefficient's) on the other side of its half
+DEG_DIFF_SHARE, DEG_MEAN_TOL = 1e-2, 1e-3
+# caption training: LLaVA-1.5-13B's widths and depth, bf16 dense base,
+# ViT-L/14-336 frozen, 2 sequences of 1024 tokens (576 of them the image),
+# the last 256 tokens the answer; LoRA as LLaVA-1.5's public LoRA finetune
+# script sets it (rank 128, alpha 256) on the seven projections
+CAPTION_TRAIN_LAYERS, CAPTION_TRAIN_SEQ, CAPTION_TRAIN_BATCH = 40, 1024, 2
+CAPTION_TRAIN_ANSWER = 256
+CAPTION_TRAIN_STEPS = 3
+LORA_RANK, LORA_ALPHA = 128, 256.0
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
+GRAD_NORM_RTOL = 1e-5
+
+
+def check_fp8_cast(torch) -> dict:
+    """`utils.quantize.to_fp8` on the card at the values around e4m3fn's
+    top: saturated up to 464, NaN past it, as the JAX package's cast."""
+    from faithdiff_tpu_torch.utils.quantize import to_fp8
+
+    x = torch.tensor([v for v, _ in FP8_PROBE], device="cuda")
+    got = to_fp8(x, torch.bfloat16).float().cpu().tolist()
+    ok = all((math.isnan(g) and math.isnan(w)) or
+             (g == w and math.copysign(1, g) == math.copysign(1, w))
+             for g, (_, w) in zip(got, FP8_PROBE))
+    # torch's own cast of 480 (448 on the CPU), for the record
+    torch_480 = float(x[7:8].to(torch.bfloat16).to(torch.float8_e4m3fn).float())
+    return dict(values=[v for v, _ in FP8_PROBE], got=got, ok=ok,
+                torch_cast_of_480=torch_480)
+
+
+def build_fp8_pipeline(torch, pipe):
+    """build_pipeline(use_fp8=True) on `pipe`'s weights."""
+    from faithdiff_tpu_torch.pipelines import build_pipeline
+
+    return build_pipeline(
+        unet_config=pipe.unet.config, vae_config=pipe.vae.config,
+        denoise_encoder_config=pipe.denoise_encoder.config,
+        pipeline_config=pipe.config, unet_state_dict=pipe.unet.state_dict(),
+        vae_state_dict=pipe.vae.state_dict(),
+        denoise_encoder_state_dict=pipe.denoise_encoder.state_dict(),
+        device="cuda", dtype=torch.bfloat16, use_fp8=True)
+
+
+def run_restore_fp8(torch, pipe, restore_counts):
+    """`restore_fp8`: the 1024x1536 restore with the UNet's weights stored
+    in fp8. Its flash and GroupNorm launches must be the bf16 restore's;
+    the upcasts a UNet call are counted (one kernel each); one UNet call
+    must equal, bit for bit, the call of a bf16 UNet whose weights are the
+    fp8 values upcast. Returns the fp8 pipeline."""
+    from faithdiff_tpu_torch.models.layers import _Upcast
+    from faithdiff_tpu_torch.models.unet import UNet2DConditionModel
+    from faithdiff_tpu_torch.utils.quantize import (dequantize_params,
+                                                    param_bytes,
+                                                    quantize_params_fp8)
+
+    cast = check_fp8_cast(torch)
+    print("fp8_cast", json.dumps(cast), flush=True)
+    if not cast["ok"]:
+        fail(f"restore_fp8: the fp8 cast on the card is not JAX's: {cast}")
+    t0 = time.perf_counter()
+    pipe8 = build_fp8_pipeline(torch, pipe)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sd8 = pipe8.unet.state_dict()
+    n8 = sum(v.dtype == torch.float8_e4m3fn for v in sd8.values())
+    upcasts = [0]
+
+    def count(*_):
+        upcasts[0] += 1
+
+    hooks = [m.register_forward_hook(count) for m in pipe8.unet.modules()
+             if isinstance(m, _Upcast)]
+    counts, (args, kwargs), _ = run_restore(torch, pipe8, packed=False,
+                                            label="restore_fp8")
+    for h in hooks:
+        h.remove()
+    if counts != restore_counts:
+        fail(f"restore_fp8: launches {counts}, the bf16 restore's {restore_counts}")
+
+    with torch.device("cuda"):
+        ref = UNet2DConditionModel(pipe.unet.config)
+    ref.load_state_dict(dequantize_params(
+        quantize_params_fp8(pipe.unet.state_dict(), torch.bfloat16),
+        torch.bfloat16))
+    ref.to(torch.bfloat16).eval().requires_grad_(False)
+    with torch.no_grad():
+        got = pipe8.unet(*args, **kwargs)
+        want = ref(*args, **kwargs)
+        bitwise = torch.equal(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        pipe8.unet(*args, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+    del ref, got, want
+    torch.cuda.empty_cache()
+    result = dict(build_s=build_s, unet_fp8_tensors=n8,
+                  unet_weight_bytes_fp8=param_bytes(sd8),
+                  unet_weight_bytes_bf16=param_bytes(pipe.unet.state_dict()),
+                  upcast_launches_per_unet_call=upcasts[0] / STEPS,
+                  unet_call_ms=start.elapsed_time(end),
+                  bitwise_equal_to_upcast_bf16=bitwise, max_abs_err=err,
+                  launches_equal_bf16_restore=True)
+    print("restore_fp8_checks", json.dumps(result), flush=True)
+    if not bitwise:
+        fail(f"restore_fp8: the fp8-stored UNet call is not the upcast call: {err}")
+    return pipe8, counts
+
+
+def run_restore_karras(torch, pipe):
+    """`restore_karras`: the 1024x1536 restore with Karras sigmas; the
+    sigmas and timesteps it steps through must be the CPU scheduler's."""
+    from faithdiff_tpu_torch.config import SchedulerConfig
+    from faithdiff_tpu_torch.schedulers import EulerDiscreteScheduler
+
+    cfg = SchedulerConfig(use_karras_sigmas=True)
+    karras = EulerDiscreteScheduler(cfg)
+    states = []
+    set_timesteps = karras.set_timesteps
+    karras.set_timesteps = lambda n: states.append(set_timesteps(n)) or states[-1]
+    before = pipe.scheduler
+    pipe.scheduler = karras
+    try:
+        counts, _, _ = run_restore(torch, pipe, packed=False, label="restore_karras")
+    finally:
+        pipe.scheduler = before
+    cpu = EulerDiscreteScheduler(cfg).set_timesteps(STEPS)
+    plain = EulerDiscreteScheduler(SchedulerConfig()).set_timesteps(STEPS)
+    same = (len(states) == 1 and torch.equal(states[0].sigmas, cpu.sigmas)
+            and torch.equal(states[0].timesteps, cpu.timesteps))
+    print("restore_karras_sigmas", json.dumps(dict(
+        sigmas=states[0].sigmas.tolist(), timesteps=states[0].timesteps.tolist(),
+        equal_cpu=same, differ_from_default=not torch.equal(cpu.sigmas, plain.sigmas))),
+        flush=True)
+    if not same or torch.equal(cpu.sigmas, plain.sigmas):
+        fail("restore_karras: sigmas not the CPU scheduler's Karras sigmas")
+    return counts
+
+
+def check_schedulers(torch) -> list:
+    """Ancestral Euler (plain and Karras sigmas), DDIM (eta 0 and 0.5) and
+    DDPM steps on the card against the CPU, the same inputs and noise."""
+    from faithdiff_tpu_torch.config import SchedulerConfig
+    from faithdiff_tpu_torch.schedulers import (DDIMScheduler, DDPMScheduler,
+                                                EulerAncestralDiscreteScheduler)
+
+    gen = torch.Generator().manual_seed(14)
+    x, eps, noise = (torch.randn(SCHED_SHAPE, generator=gen) for _ in range(3))
+    cases = [("euler_ancestral", EulerAncestralDiscreteScheduler(SchedulerConfig()), {}),
+             ("euler_ancestral_karras", EulerAncestralDiscreteScheduler(
+                 SchedulerConfig(use_karras_sigmas=True)), {}),
+             ("ddim_eta0", DDIMScheduler(SchedulerConfig()), {"eta": 0.0}),
+             ("ddim_eta0.5", DDIMScheduler(SchedulerConfig()), {"eta": 0.5}),
+             ("ddpm", DDPMScheduler(SchedulerConfig()), {})]
+    rows = []
+    for name, sched, kw in cases:
+        state = sched.set_timesteps(STEPS)
+        errs, bitwise = [], True
+        for i in (0, STEPS // 2, STEPS - 1):
+            want = sched.step(state, eps, i, x, noise=noise, **kw)
+            got = sched.step(state, eps.cuda(), i, x.cuda(),
+                             noise=noise.cuda(), **kw).cpu()
+            errs.append(float((got - want).abs().max() / (1 + want.abs().max())))
+            bitwise &= torch.equal(got, want)
+        t = torch.linspace(10, 999, SCHED_SHAPE[0]).long()
+        v = DDPMScheduler().get_velocity(x.cuda(), noise.cuda(), t).cpu()
+        v_ref = DDPMScheduler().get_velocity(x, noise, t)
+        errs.append(float((v - v_ref).abs().max() / (1 + v_ref.abs().max())))
+        rows.append(dict(check="schedulers", scheduler=name, shape=list(SCHED_SHAPE),
+                         max_rel_err=max(errs), bitwise=bitwise,
+                         tol=f"{SCHED_TOL} * (1 + max|cpu|)",
+                         ok=max(errs) <= SCHED_TOL))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def encode_png(img, depth16: bool = False, interlace: bool = False) -> bytes:
+    """An RGB PNG of [H, W, 3] uint8 `img`, every scanline unfiltered: at
+    16 bits each sample is v * 257 (its high byte v), interlaced as Adam7."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    samples = img.astype(np.uint16) * 257 if depth16 else img
+    passes = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+              (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1)) if interlace else ((0, 0, 1, 1),)
+    raw = bytearray()
+    for r0, c0, dr, dc in passes:
+        sub = samples[r0::dr, c0::dc]
+        if not sub.size:
+            continue
+        rows = sub.astype(">u2").reshape(sub.shape[0], -1).view(np.uint8) \
+            if depth16 else sub.reshape(sub.shape[0], -1)
+        for row in rows:
+            raw += b"\0" + row.tobytes()
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    ihdr = struct.pack(">IIBBBBB", img.shape[1], img.shape[0],
+                       16 if depth16 else 8, 2, 0, 0, int(interlace))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(bytes(raw), 6)) + chunk(b"IEND", b""))
+
+
+def run_png_formats(torch, root: str, ckpt: str) -> None:
+    """`png_formats`: `cli_restore`'s photo as a 16-bit RGB PNG and as an
+    Adam7-interlaced 8-bit one, restored by the CLI: each output PNG equal
+    in every byte to `cli_restore`'s output of the 8-bit original."""
+    from faithdiff_tpu_torch.utils.png import read_png
+
+    img = read_png(os.path.join(root, "in", "photo.png"))
+    fmt_dir = os.path.join(root, "in_formats")
+    os.makedirs(fmt_dir)
+    files = {"photo_16bit.png": encode_png(img, depth16=True),
+             "photo_adam7.png": encode_png(img, interlace=True)}
+    decoded = {}
+    for name, data in files.items():
+        with open(os.path.join(fmt_dir, name), "wb") as f:
+            f.write(data)
+        decoded[name] = bool((read_png(os.path.join(fmt_dir, name)) == img).all())
+    out_dir = os.path.join(root, "out_formats")
+    split = run_cli(["restore", "--img_dir", fmt_dir, "--save_dir", out_dir,
+                     "--checkpoint_dir", ckpt])
+    with open(os.path.join(root, "out", "photo.png"), "rb") as f:
+        want = f.read()
+    same = {}
+    for name in files:
+        with open(os.path.join(out_dir, name), "rb") as f:
+            same[name] = f.read() == want
+    result = dict(decoded_equal_8bit=decoded, output_png_identical=same,
+                  input_bytes={k: len(v) for k, v in files.items()}, **split)
+    print("png_formats", json.dumps(result), flush=True)
+    if not (all(decoded.values()) and all(same.values())):
+        fail(f"png_formats: {result}")
+
+
+def run_cli_restore_fp8(torch, pipe8, root: str, ckpt: str) -> dict:
+    """`cli_restore_fp8`: `cli.py restore --use_fp8` on `cli_restore`'s
+    converted weights and photo: its PNG identical in every byte to the
+    in-memory fp8 pipeline's on the same input, its launches as planned."""
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils.image import check_image_size
+    from faithdiff_tpu_torch.utils.png import read_png
+    from faithdiff_tpu_torch.utils.resample import resize_lanczos
+
+    img = read_png(os.path.join(root, "in", "photo.png"))
+    gn_unet, attn_unet = unet_counts(pipe8)
+    with cli_pipeline_watch(torch) as seen:
+        _build.launches.clear()
+        split = run_cli(["restore", "--use_fp8", "--img_dir",
+                         os.path.join(root, "in"), "--save_dir",
+                         os.path.join(root, "out_fp8"), "--checkpoint_dir", ckpt])
+        counts = dict(_build.launches)
+    cli_pipe = seen.pop("pipe")
+    n8 = sum(v.dtype == torch.float8_e4m3fn for v in cli_pipe.unet.state_dict().values())
+    del cli_pipe
+    torch.cuda.empty_cache()
+    expected = seen["watch"].expected_launches("cli_restore_fp8", "flash_attention_fwd",
+                                               gn_unet, attn_unet)
+    if counts != expected:
+        fail(f"cli_restore_fp8: launch counts {counts}, expected {expected}")
+    got = read_png(os.path.join(root, "out_fp8", "photo.png"))
+    h, w = img.shape[:2]
+    padded, w0, h0, _, _ = check_image_size(resize_lanczos(img, (2 * w, 2 * h)))
+    pipe8.tile_chunk = cli.TILE_CHUNK
+    want = pipe8(padded, torch.zeros((1, 77, 2048)), torch.zeros((1, 1280)),
+                 seed=42, output_type="uint8")[:h0, :w0]
+    identical = got.shape == want.shape and bool((got == want).all())
+    result = dict(unet_fp8_tensors=n8, load_s=seen["load_s"], **split,
+                  identical_to_in_memory=identical, launches=counts,
+                  launches_as_planned=True)
+    print("cli_restore_fp8", json.dumps(result), flush=True)
+    if not identical or not n8:
+        fail(f"cli_restore_fp8: {result}")
+    return result
+
+
+class RecordedDraws:
+    """A `TorchDraws` whose draws are kept, and replayed on another
+    device by `replay()`."""
+
+    def __init__(self, torch, generator):
+        from faithdiff_tpu_torch.data.degradation import TorchDraws
+
+        self.torch, self.inner, self.log = torch, TorchDraws(generator), []
+
+    def _keep(self, out):
+        self.log.append(out)
+        return out
+
+    def gaussian(self, *a):
+        return self._keep(self.inner.gaussian(*a))
+
+    def poisson(self, *a):
+        return self._keep(self.inner.poisson(*a))
+
+    def jpeg_quality(self, *a):
+        return self._keep(self.inner.jpeg_quality(*a))
+
+    def replay(self, device):
+        log = iter(self.log)
+
+        def nxt(*_):
+            out = next(log)
+            return (tuple(t.to(device) for t in out) if isinstance(out, tuple)
+                    else out.to(device))
+
+        return types.SimpleNamespace(gaussian=nxt, poisson=nxt, jpeg_quality=nxt)
+
+
+def run_degradation(torch) -> dict:
+    """`degradation`: batches of DEG_BATCH GT crops at DEG_RES^2 through
+    `RealESRGANDegradation()` at its defaults, DEG_PLANS seeded plans (each
+    call's host plan and kernels, and its draws on the card, inside the
+    time); then one plan on the card with TF32 off against the CPU with
+    the same draws."""
+    from faithdiff_tpu_torch.data.degradation import RealESRGANDegradation
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    gt = torch.rand((DEG_BATCH, DEG_RES, DEG_RES, 3), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ms, bad = [], []
+    for p in range(DEG_PLANS):
+        deg = RealESRGANDegradation(seed=p)
+        g = torch.Generator(device="cuda").manual_seed(100 + p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lq = deg(gt, generator=g)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        levels = lq * 255.0
+        if (tuple(lq.shape) != (DEG_BATCH, DEG_RES // 4, DEG_RES // 4, 3)
+                or not bool(torch.isfinite(lq).all())
+                or float((levels - torch.round(levels)).abs().max()) > 1e-3
+                or float(lq.min()) < 0 or float(lq.max()) > 1):
+            bad.append(p)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        draws = RecordedDraws(torch, torch.Generator(device="cuda").manual_seed(7))
+        _, lq_dev = RealESRGANDegradation(seed=0)(gt, draws=draws)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    _, lq_cpu = RealESRGANDegradation(seed=0)(gt.cpu(), draws=draws.replay("cpu"))
+    diff = (lq_dev.cpu() - lq_cpu).abs()
+    # the LQ is on 8-bit levels; x / 255 itself may round in another ulp
+    # on the two devices, so a flip is a different level
+    flips = torch.round(lq_dev.cpu() * 255) != torch.round(lq_cpu * 255)
+    share = float(flips.float().mean())
+    result = dict(batch=DEG_BATCH, res=DEG_RES, plans=DEG_PLANS, ms_per_batch=median(ms),
+                  ms_min=min(ms), ms_max=max(ms), peak_mem_gib=peak,
+                  lq_shape=list(lq.shape), bad_plans=bad,
+                  cpu_max_abs_err=float(diff.max()),
+                  cpu_mean_abs_err=float(diff.mean()),
+                  cpu_level_flip_share=share,
+                  cpu_level_flips_max=round(float(diff.max()) * 255),
+                  tol=f"share <= {DEG_DIFF_SHARE}, mean <= {DEG_MEAN_TOL}",
+                  tf32_for_timing=list(tf32))
+    print("degradation", json.dumps(result), flush=True)
+    if bad or share > DEG_DIFF_SHARE or result["cpu_mean_abs_err"] > DEG_MEAN_TOL:
+        fail(f"degradation: {result}")
+    return result
+
+
+def build_caption_train(torch):
+    """The captioner's three modules for training on the card: the LLaMA
+    (CAPTION_TRAIN_LAYERS layers, dense, bf16 weights, fp32 norms) and the
+    ViT in bf16, the projector fp32 (the trainable master), seeded random
+    weights."""
+    from faithdiff_tpu_torch.captioner import (CLIPVisionConfig, LlamaConfig,
+                                               LlamaForCausalLM)
+    from faithdiff_tpu_torch.captioner.clip_vision import (CLIPVisionTower,
+                                                           VisionProjector)
+    from faithdiff_tpu_torch.pipelines.factory import random_init_
+
+    import dataclasses
+
+    lcfg = dataclasses.replace(LlamaConfig(), num_hidden_layers=CAPTION_TRAIN_LAYERS)
+    vcfg = CLIPVisionConfig()
+    with torch.device("cuda"):
+        llama = LlamaForCausalLM(lcfg, dtype=torch.bfloat16)
+        vision = CLIPVisionTower(vcfg, dtype=torch.bfloat16)
+        projector = VisionProjector(lcfg.hidden_size, vcfg.hidden_size)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for m in (llama, vision, projector):
+        random_init_(m, gen)
+        m.requires_grad_(False)
+    return {"llama": llama, "vision": vision, "projector": projector}
+
+
+def caption_train_batch(torch, lcfg, vcfg):
+    """CAPTION_TRAIN_BATCH sequences of CAPTION_TRAIN_SEQ tokens: BOS, the
+    image placeholder span (one token a patch), prompt text and an answer
+    of CAPTION_TRAIN_ANSWER tokens, labelled; NHWC CLIP pixels."""
+    from faithdiff_tpu_torch.training.caption_train import IGNORE_INDEX
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ids = torch.randint(3, lcfg.vocab_size, (CAPTION_TRAIN_BATCH, CAPTION_TRAIN_SEQ),
+                        generator=gen, device="cuda")
+    ids[:, 0] = 1
+    labels = torch.full_like(ids, IGNORE_INDEX)
+    labels[:, -CAPTION_TRAIN_ANSWER:] = ids[:, -CAPTION_TRAIN_ANSWER:]
+    pixels = torch.randn((CAPTION_TRAIN_BATCH, vcfg.image_size, vcfg.image_size, 3),
+                         generator=gen, device="cuda")
+    return {"input_ids": ids, "labels": labels, "pixels": pixels}
+
+
+def run_caption_train(torch) -> dict:
+    """`caption_train`: three "projector" steps and three LoRA steps of the
+    captioner at full width. Checks: finite losses, frozen tensors bitwise
+    still, every trainable tensor changed, each step's launches the flash
+    kernel's once a layer and nothing else, and in "projector" mode a
+    `grad_norm` equal to the norm over ALL the gradients (the frozen
+    LLaMA's included: tensor hooks sum each gradient's squares as autograd
+    makes it). Prints ms a step, the peak, the launches of each step."""
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.training import caption_train as ct
+    from faithdiff_tpu_torch.training import lora as tlora
+
+    t0 = time.perf_counter()
+    m = build_caption_train(torch)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lcfg, vcfg = m["llama"].config, m["vision"].config
+    batch = caption_train_batch(torch, lcfg, vcfg)
+    torch.cuda.reset_peak_memory_stats()
+    frozen = list(m["llama"].parameters()) + list(m["vision"].parameters())
+    frozen_before = checksums(torch, frozen)
+
+    # "projector": the update over the whole gradient
+    opt = ct.make_caption_optimizer(m, "projector", learning_rate=2e-5,
+                                    projector_lr=2e-5)
+    state = ct.CaptionTrainState(0, m, opt)
+    step = ct.make_caption_train_step(image_token_pos=1,
+                                      compute_dtype=torch.bfloat16)
+    proj = list(m["projector"].parameters())
+    proj_before = checksums(torch, proj)
+    seen_sq, seen_n = [], [0]
+
+    def square_hook(g):
+        seen_sq.append(g.float().square().sum())
+        seen_n[0] += 1
+
+    def timed(mode, fn, *args):
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = fn(*args)
+        torch.cuda.synchronize()
+        rows.append(dict(mode=mode, ms=1e3 * (time.perf_counter() - t),
+                         loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"])))
+        launches.append(dict(_build.launches))
+
+    rows, launches = [], []
+    for i in range(CAPTION_TRAIN_STEPS):
+        params = ct.named_caption_params(m)
+        hooks = []
+        if i == 0:
+            # tensor hooks see every gradient autograd makes, before the
+            # step's own reduction; they are registered on the step's leaves
+            for k, p in params.items():
+                p.requires_grad_(not k.startswith("vision."))
+            hooks = [p.register_hook(square_hook) for k, p in params.items()
+                     if not k.startswith("vision.")]
+        timed("projector", step, state, batch)
+        for h in hooks:
+            h.remove()
+    all_norm = float(torch.sqrt(torch.stack(seen_sq).sum()))
+    n_params = sum(1 for k, p in ct.named_caption_params(m).items()
+                   if not k.startswith("vision."))
+    norm_ok = (seen_n[0] == n_params and
+               abs(all_norm - rows[0]["grad_norm"]) <= GRAD_NORM_RTOL * all_norm)
+    proj_changed = bool((checksums(torch, proj) != proj_before).all())
+
+    # LoRA on the frozen LLaMA
+    lora = tlora.init_lora(m["llama"], LORA_RANK,
+                           torch.Generator(device="cuda").manual_seed(10),
+                           targets=LORA_TARGETS, alpha=LORA_ALPHA)
+    n_lora = tlora.count_lora_modules(lora)
+    lora_before = checksums(torch, list(lora.values()))
+    lopt = ct.CaptionOptimizer(lora, {k: "train" for k in lora}, learning_rate=2e-4)
+    proj_after = checksums(torch, proj)
+
+    def loss_from_model(model, b):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return ct.caption_loss(model, m["vision"], m["projector"], b, 1)
+
+    lstep = tlora.make_lora_train_step(loss_from_model, m["llama"], lopt.update_)
+    for i in range(CAPTION_TRAIN_STEPS):
+        timed("lora", lstep, lora, batch)
+    lora_changed = bool((checksums(torch, list(lora.values())) != lora_before).all())
+    frozen_still = bool(torch.equal(checksums(torch, frozen), frozen_before)
+                        and torch.equal(checksums(torch, proj), proj_after))
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                 for r in rows)
+    # one causal flash launch a layer (the sequence is >= 1024 tokens; the
+    # ViT's 577 stay on the plain path), and no other kernel
+    expected = {"flash_attention_fwd": lcfg.num_hidden_layers}
+    steps = CAPTION_TRAIN_STEPS
+    result = dict(
+        layers=lcfg.num_hidden_layers, hidden=lcfg.hidden_size,
+        batch=CAPTION_TRAIN_BATCH, seq=int(batch["input_ids"].shape[1]),
+        image_tokens=vcfg.num_patches, build_s=build_s, steps=rows,
+        ms_per_step_projector=median([r["ms"] for r in rows[1:steps]]),
+        ms_per_step_lora=median([r["ms"] for r in rows[steps + 1:]]),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_step=launches, expected_launches_per_step=expected,
+        lora_modules=n_lora, lora_rank=LORA_RANK,
+        lora_alpha=LORA_ALPHA, grad_norm_all_gradients=all_norm,
+        gradients_in_norm=seen_n[0], params_with_gradient=n_params,
+        grad_norm_is_whole_tree=norm_ok, frozen_bitwise_still=frozen_still,
+        projector_changed=proj_changed, lora_changed=lora_changed,
+        finite=finite)
+    print("caption_train", json.dumps(result), flush=True)
+    ok = (finite and norm_ok and frozen_still and proj_changed and lora_changed
+          and launches == [expected] * len(launches))
+    if not ok:
+        fail(f"caption_train: {result}")
+    return result
+
+
+def jpeg_probe() -> dict:
+    """Whether the card's machine has libjpeg and its header: what the
+    port's JPEG input would need. Information only."""
+    import ctypes.util
+    import glob as _glob
+
+    lib = ctypes.util.find_library("jpeg")
+    headers = sorted(set(_glob.glob("/usr/include/**/jpeglib.h", recursive=True)
+                         + _glob.glob("/usr/local/include/**/jpeglib.h",
+                                      recursive=True)))
+    result = dict(libjpeg=lib, jpeglib_h=headers)
+    print("jpeg_probe", json.dumps(result), flush=True)
+    return result
+
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "faithdiff_tpu_torch")):
@@ -3060,6 +3661,14 @@ def main() -> int:
     if not all(counts.get(k) for k in ("group_norm_fused", "group_norm_stats",
                                        "group_norm_apply")):
         fail(f"restore did not launch every GroupNorm kernel: {counts}")
+    with phase("restore_fp8"):
+        pipe8, fp8_counts = run_restore_fp8(torch, pipe, counts)
+    with phase("restore_karras"):
+        karras_counts = run_restore_karras(torch, pipe)
+    with phase("schedulers"):
+        bad = [r for r in check_schedulers(torch) if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} scheduler steps on the card are not the CPU's: {bad}")
     # the reference-layout weight files and the converted copy live beside
     # the built kernels, and go whether the CLI phases pass or fail
     root = os.path.join(_build.BUILD_DIR, f"cli_weights_{os.getpid()}")
@@ -3071,8 +3680,15 @@ def main() -> int:
             run_cli_restore_tiled(torch, root, ckpt)
         with phase("cli_restore_prompt"):
             run_cli_restore_prompt(torch, pipe, root, ckpt)
+        with phase("cli_restore_fp8"):
+            run_cli_restore_fp8(torch, pipe8, root, ckpt)
+        with phase("png_formats"):
+            run_png_formats(torch, root, ckpt)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    del pipe8
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("restore_large"):
         _, (args, kwargs), first = run_restore(torch, pipe, packed=False,
                                                pixels=LARGE_PIXELS,
@@ -3158,6 +3774,19 @@ def main() -> int:
             run_cli_train(torch, train_root)
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("degradation"):
+        run_degradation(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("caption_train"):
+        caption_train = run_caption_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("jpeg_probe"):
+        jpeg_probe()
+    caption_step = caption_train["launches_per_step"][0]
 
     def entry(name, row, source, replaces, launches=counts):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3167,7 +3796,11 @@ def main() -> int:
                     library_ms=row["library_ms"],
                     train_launches_per_micro_step={
                         "stage1": stage1["launches_per_micro_step"][name],
-                        "stage2": stage2["launches_per_micro_step"][name]})
+                        "stage2": stage2["launches_per_micro_step"][name]},
+                    path_launches={
+                        "restore_fp8": fp8_counts.get(name, 0),
+                        "restore_karras": karras_counts.get(name, 0),
+                        "caption_train_step": caption_step.get(name, 0)})
 
     kernels = [
         entry("flash_attention_fwd", attn[ATTN_REPORT],

@@ -3,7 +3,7 @@
     python -m faithdiff_tpu_torch.cli restore --img_dir in/ --save_dir out/ \\
         [--checkpoint_dir ckpts/] [--tokenizer_dir sdxl/] [--json_dir caps/] \\
         [--negative_prompt TEXT] [--canvas_resume_dir resume/] \\
-        [--upscale 2] [--use_tile_vae] [--hdr 0.5]
+        [--upscale 2] [--use_tile_vae] [--hdr 0.5] [--use_fp8]
     python -m faithdiff_tpu_torch.cli train --output_dir run/ \\
         [--stage 1|2] [--synthetic_data | --hr_dir HR --lr_dir LR] [...]
     python -m faithdiff_tpu_torch.cli embed --caption_dir caps/ \\
@@ -12,8 +12,9 @@
         --captioner_dir ckpts/captioner [--use_bsrnet]
 
 `restore` takes the JAX CLI's flags with the same defaults and runs its
-loop: every `*.png` of `--img_dir` in sorted order, skipping those whose
-output exists; optional HDR, then a Pillow-exact LANCZOS upscale, a
+loop: every `*.png` of `--img_dir` in sorted order (8- and 16-bit, any
+color type, interlaced or not, read as PIL's `convert("RGB")` reads
+them), skipping those whose output exists; optional HDR, then a Pillow-exact LANCZOS upscale, a
 replicate pad to /8, the pipeline, the crop back and a PNG write.
 `--checkpoint_dir` reads what `faithdiff_tpu_torch.utils.convert_cli`
 writes (`unet/`, `vae/`, `denoise_encoder/`, `text_encoders/` of
@@ -25,6 +26,8 @@ without them the prompt embeddings are zeros, as in the JAX CLI.
 `--canvas_resume_dir` keeps each step's canvas of a restore above
 `host_loop_tile_threshold` tiles in a directory per image, from which a
 re-run resumes. The pipeline runs `TILE_CHUNK` tiles a UNet call.
+`--use_fp8` stores the UNet's weights in float8_e4m3fn and upcasts each
+where its layer runs (`pipelines.factory.build_pipeline(use_fp8=True)`).
 
 `caption` runs the JAX CLI's loop: the LLaVA-1.5 captioner of
 `--captioner_dir` (what `convert_cli --llava --clip_vision` writes, int8 as
@@ -39,9 +42,10 @@ CUDA card unless `--device cpu` is given.
 its flags are the JAX runner's, see that module).
 
 What the port does not serve yet raises NotImplementedError naming its
-ROADMAP item: the `metrics` command, `--use_fp8`, `--tile_devices` above
-1, inputs other than PNG, and in `train` `--dtype float32` on the card
-and more than one process.
+ROADMAP item: the `metrics` command (§1.6), `--tile_devices` above 1
+(§1.5), JPEG and other non-PNG inputs (§1.1: they wait for a JPEG decoder
+shown on the card's machine, `chip_smoke.py`'s `jpeg_probe`), and in
+`train` `--dtype float32` on the card and more than one process.
 """
 from __future__ import annotations
 
@@ -67,7 +71,8 @@ from .utils.png import read_png, write_png
 from .utils.resample import resize_lanczos
 from .utils.safetensors import load_dir
 
-_RESTORE_OPTIONS = "ROADMAP §1.1 (restore pipeline options)"
+_JPEG_INPUT = ("ROADMAP §1.1 (input formats): JPEG waits for a decoder shown "
+               "on the card's machine (chip_smoke.py jpeg_probe)")
 _NOT_YET = {
     "metrics": "ROADMAP §1.6 (eval)",
 }
@@ -119,7 +124,8 @@ def _add_restore_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--start_point", choices=["lr", "noise"], default="lr")
     p.add_argument("--use_tile_vae", action="store_true")
     p.add_argument("--use_fp8", action="store_true",
-                   help=f"not served yet: {_RESTORE_OPTIONS}")
+                   help="store UNet weights as float8 (min-memory mode, "
+                        "the reference --use_fp8)")
     p.add_argument("--hdr", type=float, default=0.0)
     p.add_argument("--checkpoint_dir", default=None,
                    help="dir with converted params (unet/ vae/ "
@@ -146,16 +152,12 @@ def _add_restore_args(p: argparse.ArgumentParser) -> None:
 def _refuse_unserved(args, images) -> None:
     """Raise on what this slice of the port does not serve, before any
     weight is read."""
-    if args.use_fp8:
-        raise NotImplementedError(f"--use_fp8: {_RESTORE_OPTIONS}")
     if args.tile_devices != 1:
         raise NotImplementedError(
             f"--tile_devices {args.tile_devices}: ROADMAP §1.5 (multi-GPU)")
     jpegs = [p for p in images if not p.lower().endswith(".png")]
     if jpegs:
-        raise NotImplementedError(
-            f"{jpegs[0]}: JPEG input, {_RESTORE_OPTIONS}: no JPEG decoder is "
-            "known on the card's machine")
+        raise NotImplementedError(f"{jpegs[0]}: JPEG input, {_JPEG_INPUT}")
 
 
 def load_checkpointed_pipeline(args):
@@ -189,7 +191,8 @@ def load_checkpointed_pipeline(args):
         unet_state_dict=maybe("unet"),
         vae_state_dict=maybe("vae"),
         denoise_encoder_state_dict=maybe("denoise_encoder"),
-        device=args.device, tile_chunk=TILE_CHUNK, **kwargs)
+        device=args.device, tile_chunk=TILE_CHUNK, use_fp8=args.use_fp8,
+        **kwargs)
 
 
 def make_text_encoder(args):
@@ -348,9 +351,7 @@ def cmd_caption(argv) -> int:
                    if os.path.isfile(q))
     others = [q for q in paths if not q.lower().endswith(".png")]
     if others:
-        raise NotImplementedError(
-            f"{others[0]}: not a PNG; other input formats are "
-            f"{_RESTORE_OPTIONS}")
+        raise NotImplementedError(f"{others[0]}: not a PNG; {_JPEG_INPUT}")
     if args.use_bsrnet:
         print("WARNING: --use_bsrnet is not applied (the JAX CLI parses it "
               "and never reads it); the images are captioned as they are")

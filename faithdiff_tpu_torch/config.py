@@ -146,8 +146,11 @@ class SchedulerConfig:
     timestep_spacing: str = "leading"
     steps_offset: int = 1
     prediction_type: str = "epsilon"
+    # EulerDiscrete extras
     interpolation_type: str = "linear"
     use_karras_sigmas: bool = False
+    # DDPM / DDIM extras (the DDPM step's variance is fixed_small)
+    clip_sample: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

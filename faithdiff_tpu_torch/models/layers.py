@@ -7,12 +7,13 @@ return the input dtype; parameters carry diffusers state-dict names.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.nn.utils import parametrize
 
 from ..ops.groupnorm import group_norm
 
@@ -26,6 +27,41 @@ def maybe_checkpoint(enabled: bool, fn, *args):
         return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
     return fn(*args)
+
+
+class _Upcast(nn.Module):
+    """Parametrization that reads a stored fp8 tensor in `dtype`."""
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def forward(self, stored: torch.Tensor) -> torch.Tensor:
+        return stored.to(self.dtype)
+
+
+@torch.no_grad()
+def store_fp8_(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> int:
+    """Hold each float8_e4m3fn entry of `state_dict` (the model's own names,
+    as `utils.quantize.quantize_params_fp8` gives them) as the model's
+    stored parameter, read through a parametrization that upcasts it to
+    the parameter's current dtype at every access: each layer's weight
+    exists in the compute dtype only while that layer runs, and fp8 ->
+    bf16 is exact, so the model computes what it computes on the upcast
+    weights. Returns the number of tensors stored in fp8."""
+    n = 0
+    for key, value in state_dict.items():
+        if value.dtype != torch.float8_e4m3fn:
+            continue
+        module_name, _, name = key.rpartition(".")
+        module = model.get_submodule(module_name)
+        dtype = getattr(module, name).dtype
+        module._parameters[name] = nn.Parameter(
+            value.to(getattr(module, name).device), requires_grad=False)
+        parametrize.register_parametrization(module, name, _Upcast(dtype),
+                                             unsafe=True)
+        n += 1
+    return n
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,

@@ -9,6 +9,13 @@ in any float dtype: each loads into the fp32 model, which is then cast to
 `dtype` (fp16 -> fp32 -> bf16 rounds to nearest even, as the JAX
 package's cast does).
 
+Under `use_fp8` the UNet's weights are stored as float8_e4m3fn, picked
+and rounded as the JAX factory picks and rounds them (the compute dtype
+first, then fp8; `utils.quantize.quantize_params_fp8`), and each is upcast
+to the compute dtype where its layer runs (`models.layers.store_fp8_`),
+not the whole UNet once a call. The VAE and the denoise encoder stay in
+the compute dtype, as in JAX.
+
 Under `pipeline_config.use_tiled_vae` the denoise encoder, the VAE encode
 and the VAE decode run over blended tiles (`models.vae.tiled_apply`) once
 the input outgrows a tile, with the JAX factory's gates.
@@ -23,9 +30,11 @@ import torch.nn as nn
 from ..config import (DenoiseEncoderConfig, PipelineConfig, SchedulerConfig,
                       UNetConfig, VAEConfig, tiny_denoise_encoder_config,
                       tiny_unet_config, tiny_vae_config)
+from ..models.layers import store_fp8_
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL, DenoiseEncoder, tiled_apply
 from ..schedulers import DDPMScheduler, EulerDiscreteScheduler
+from ..utils.quantize import quantize_params_fp8
 from .faithdiff import FaithDiffPipeline
 
 # zero-initialised like the JAX package's fusion outputs, so an untrained
@@ -62,11 +71,13 @@ def build_pipeline(
     device="cuda",
     seed: int = 0,
     tile_chunk: Optional[int] = None,
+    use_fp8: bool = False,
 ) -> FaithDiffPipeline:
     """Build the pipeline on `device` in `dtype`. Each model loads its state
     dict (strict) or, when it is None, gets `random_init_` from a generator
     seeded with `seed` on the device. `tile_chunk` caps the tiles of one
-    UNet call (None: every tile in one call)."""
+    UNet call (None: every tile in one call). `use_fp8` stores the UNet's
+    weights in fp8 (the module docstring)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_pipeline: device 'cuda' requested but CUDA "
@@ -84,6 +95,8 @@ def build_pipeline(
         else:
             model.load_state_dict(state_dict, strict=True)
         model.to(dtype).eval().requires_grad_(False)
+    if use_fp8:
+        store_fp8_(unet, quantize_params_fp8(unet.state_dict(), dtype))
     return FaithDiffPipeline(
         unet=unet, vae=vae, denoise_encoder=denoise_encoder,
         scheduler=EulerDiscreteScheduler(scheduler_config),

@@ -1,6 +1,12 @@
 from .common import alphas_cumprod, make_betas, spaced_timesteps
-from .ddpm import DDPMScheduler
-from .euler import EulerDiscreteScheduler, EulerState
+from .ddim import DDIMScheduler, DDIMState
+from .ddpm import DDPMScheduler, DDPMState
+from .euler import (EulerAncestralDiscreteScheduler, EulerDiscreteScheduler,
+                    EulerState)
 
-__all__ = ["alphas_cumprod", "make_betas", "spaced_timesteps",
-           "DDPMScheduler", "EulerDiscreteScheduler", "EulerState"]
+__all__ = [
+    "alphas_cumprod", "make_betas", "spaced_timesteps",
+    "DDIMScheduler", "DDIMState",
+    "DDPMScheduler", "DDPMState",
+    "EulerDiscreteScheduler", "EulerAncestralDiscreteScheduler", "EulerState",
+]

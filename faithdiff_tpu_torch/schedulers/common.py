@@ -2,7 +2,10 @@
 `faithdiff_tpu/schedulers/common.py`), in numpy float64."""
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
 
 from ..config import SchedulerConfig
 
@@ -42,3 +45,15 @@ def spaced_timesteps(cfg: SchedulerConfig,
         step_ratio = n / num_inference_steps
         return (np.round(np.arange(n, 0, -step_ratio)) - 1).astype(np.int64)
     raise ValueError(f"unknown timestep spacing {cfg.timestep_spacing!r}")
+
+
+def step_noise(sample: torch.Tensor, generator: Optional[torch.Generator],
+               noise: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A stochastic step's N(0, 1): `noise` if given, else drawn from
+    `generator` on the generator's device, else None."""
+    if noise is not None:
+        return noise.to(sample.device)
+    if generator is None:
+        return None
+    return torch.randn(sample.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).to(sample.device)

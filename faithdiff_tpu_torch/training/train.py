@@ -125,6 +125,34 @@ def named_params(unet: nn.Module, denoise_encoder: nn.Module
     return out
 
 
+def global_norm(grads) -> torch.Tensor:
+    """optax's `global_norm`: the L2 norm over every tensor, in fp32."""
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def clip_by_global_norm_(grads, g_norm: torch.Tensor, max_norm: float) -> None:
+    """optax's `clip_by_global_norm`, in place: scale by max_norm / norm
+    only when the norm reaches max_norm."""
+    if not float(g_norm) < max_norm:
+        for g in grads:
+            g.div_(g_norm).mul_(max_norm)
+
+
+@torch.no_grad()
+def adamw_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+           nu: torch.Tensor, lr: float, count: int, b1: float, b2: float,
+           eps: float, weight_decay: float) -> None:
+    """One optax `adamw` update of `p` in place (`count` = this update's
+    1-based step): moments in fp32, bias-corrected, decoupled weight
+    decay, then `-lr` times the update."""
+    mu.mul_(b1).add_(g * (1 - b1))
+    nu.mul_(b2).add_(g * g * (1 - b2))
+    update = (mu / (1 - b1 ** count)) / (torch.sqrt(nu / (1 - b2 ** count))
+                                         + eps)
+    update.add_(p * weight_decay)
+    p.add_(update.mul_(-lr))
+
+
 class Optimizer:
     """optax's `MultiSteps(chain(clip_by_global_norm, multi_transform(
     {"train": adamw, "vis": adamw})))` over the trainable parameters, in
@@ -191,24 +219,14 @@ class Optimizer:
         grads = {}
         for name, p in self.params.items():
             grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
-        # optax.clip_by_global_norm: scale by max_norm / norm only when the
-        # norm reaches max_norm
-        g_norm = torch.sqrt(sum(g.float().square().sum()
-                                for g in grads.values()))
-        if not float(g_norm) < cfg.max_grad_norm:
-            for g in grads.values():
-                g.div_(g_norm).mul_(cfg.max_grad_norm)
+        clip_by_global_norm_(grads.values(), global_norm(grads.values()),
+                             cfg.max_grad_norm)
         count = self.gradient_step + 1
-        b1, b2 = cfg.adam_beta1, cfg.adam_beta2
-        bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
-        step_sizes = {label: -self.lr(label) for label in ("train", "vis")}
+        lrs = {label: self.lr(label) for label in ("train", "vis")}
         for name, p in self.params.items():
-            g, mu, nu = grads[name], self.mu[name], self.nu[name]
-            mu.mul_(b1).add_(g * (1 - b1))
-            nu.mul_(b2).add_(g * g * (1 - b2))
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_epsilon)
-            update.add_(p * cfg.adam_weight_decay)
-            p.add_(update.mul_(step_sizes[self.labels[name]]))
+            adamw_(p, grads[name], self.mu[name], self.nu[name],
+                   lrs[self.labels[name]], count, cfg.adam_beta1,
+                   cfg.adam_beta2, cfg.adam_epsilon, cfg.adam_weight_decay)
             p.grad = None
 
     def state_dict(self) -> dict:

@@ -108,6 +108,45 @@ def _path_to_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     raise KeyError(f"unhandled flax leaf {'/'.join(path)}")
 
 
+def flax_param_path(key: str, ndim: int) -> Tuple[str, ...]:
+    """The flax param path (without "params") that `_path_to_key` carries
+    to the state-dict entry `key` of an `ndim`-D tensor: its inverse. A
+    `.weight` of 2 or more dims is a dense or conv `kernel`, of one dim a
+    norm `scale`. Raises KeyError on a key no flax path gives."""
+    if key.endswith(".in_proj_weight"):
+        module, leaf = key[:-len(".in_proj_weight")], "kernel"
+    elif key.endswith(".in_proj_bias"):
+        module, leaf = key[:-len(".in_proj_bias")], "bias"
+    elif key.endswith(".weight"):
+        module, leaf = key[:-len(".weight")], "kernel" if ndim >= 2 else "scale"
+    elif key.endswith(".bias"):
+        module, leaf = key[:-len(".bias")], "bias"
+    else:
+        raise KeyError(f"no flax path for {key}")
+    module = re.sub(r"to_out\.0$", "to_out", module)
+    module = re.sub(r"(information_transformer_layes\.\d+)\.attn\.out_proj$",
+                    r"\1.out_proj", module)
+    module = re.sub(r"(information_transformer_layes\.\d+)\.attn$",
+                    r"\1.in_proj", module)
+    module = re.sub(r"(information_transformer_layes\.\d+)\.mlp\.c_(fc|proj)$",
+                    r"\1.mlp_c_\2", module)
+    module = module.replace("information_transformer_layes.",
+                            "information_transformer.layers.")
+    if module.startswith("spatial_ch_projs"):
+        module = "information_transformer." + module
+    parts = module.split(".")
+    path = []
+    for p in parts:
+        if p.isdigit() and path and path[-1] in _INDEXED:
+            path[-1] = f"{path[-1]}_{p}"
+        else:
+            path.append(p)
+    path = tuple(path) + (leaf,)
+    if _path_to_key(path)[0] != key:
+        raise KeyError(f"no flax path for {key}")
+    return path
+
+
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax params of the UNet, the VAE or the denoise encoder -> the
     port's state dict (fp32 tensors), ready for `load_state_dict(strict=True)`.

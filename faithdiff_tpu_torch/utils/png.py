@@ -1,16 +1,20 @@
 """PNG read and write on the standard library's `zlib` and numpy.
 
-`read_png` decodes a non-interlaced PNG of color type 0 (gray, 1/2/4/8
-bits), 2 (RGB, 8), 3 (palette, 1/2/4/8), 4 (gray + alpha, 8) or 6 (RGBA,
-8) to the [H, W, 3] uint8 array that `np.asarray(Image.open(p).convert(
-"RGB"))` gives: alpha and transparency are dropped, gray is replicated,
-gray below 8 bits is scaled to 0..255. Interlaced and 16-bit files raise.
-`write_png` writes an [H, W, 3] uint8 array as an 8-bit RGB PNG.
+`read_png` decodes a PNG of color type 0 (gray, 1/2/4/8/16 bits), 2 (RGB,
+8/16), 3 (palette, 1/2/4/8), 4 (gray + alpha, 8/16) or 6 (RGBA, 8/16),
+interlaced (Adam7) or not, to the [H, W, 3] uint8 array that
+`np.asarray(Image.open(p).convert("RGB"))` gives with Pillow 12: alpha
+and transparency (`tRNS`) are dropped, gray is replicated, gray below 8
+bits is scaled to 0..255, 16-bit RGB, RGBA and gray + alpha keep their
+high byte, and 16-bit gray (Pillow's mode `I;16`) is clipped to 255, not
+shifted. `write_png` writes an [H, W, 3] uint8 array as an 8-bit RGB PNG.
 
 The five scanline filters are undone together along anti-diagonals: a
 byte depends only on its left, upper and upper-left neighbours, so every
 pixel with the same row + column is independent of the others, and a
-whole diagonal is one vectorised step (H + W steps an image).
+whole diagonal is one vectorised step (H + W steps an image). An Adam7
+image is seven such sub-images, each filtered on its own, scattered back
+onto the pixel grid.
 """
 from __future__ import annotations
 
@@ -21,8 +25,11 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> (channels, allowed bit depths)
-_COLOR_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)),
-                4: (2, (8,)), 6: (4, (8,))}
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+                3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _chunks(data: bytes, path: str):
@@ -74,19 +81,77 @@ def _unfilter(raw: np.ndarray, height: int, rowbytes: int, bpp: int) -> np.ndarr
     return out[1:, 1:].reshape(height, rowbytes).astype(np.uint8)
 
 
-def _unpack(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
-    """[H, rowbytes] packed samples (MSB first) -> [H, width] uint8 values."""
+def _samples(rows: np.ndarray, width: int, depth: int,
+             channels: int) -> np.ndarray:
+    """[H, rowbytes] unfiltered scanlines -> [H, width, channels] samples
+    (uint16 at 16 bits, big-endian; else uint8, packed ones MSB first)."""
+    h = rows.shape[0]
+    if depth == 16:
+        pairs = rows.reshape(h, width * channels, 2).astype(np.uint16)
+        return ((pairs[..., 0] << 8) | pairs[..., 1]).reshape(h, width, channels)
     if depth == 8:
-        return rows
+        return rows.reshape(h, width, channels)
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
     vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-    return vals.reshape(rows.shape[0], -1)[:, :width]
+    return vals.reshape(h, -1)[:, :width, None]
+
+
+def _decode(raw: np.ndarray, width: int, height: int, depth: int,
+            channels: int, interlace: int, path: str) -> np.ndarray:
+    """Inflated image data -> [H, W, channels] samples, Adam7 passes
+    scattered back onto the grid."""
+    bpp = max(1, channels * depth // 8)
+    passes = (_ADAM7 if interlace else ((0, 0, 1, 1),))
+    out = None
+    pos = 0
+    for r0, c0, dr, dc in passes:
+        h, w = -(-(height - r0) // dr), -(-(width - c0) // dc)
+        if h <= 0 or w <= 0:
+            continue                  # an empty pass has no scanlines
+        rowbytes = (w * channels * depth + 7) // 8
+        need = h * (rowbytes + 1)
+        if raw.size < pos + need:
+            raise ValueError(f"{path}: {raw.size} bytes of image data, "
+                             f"{pos + need} or more expected")
+        sub = _samples(_unfilter(raw[pos:pos + need], h, rowbytes, bpp),
+                       w, depth, channels)
+        pos += need
+        if not interlace:
+            return sub
+        if out is None:
+            out = np.zeros((height, width, channels), sub.dtype)
+        out[r0::dr, c0::dc] = sub
+    return out
+
+
+def _to_rgb(samples: np.ndarray, ctype: int, depth: int, palette,
+            path: str) -> np.ndarray:
+    """Samples -> [H, W, 3] uint8 as Pillow's `convert("RGB")` gives them."""
+    if ctype == 3:
+        values = samples[..., 0]
+        if values.max() >= len(palette):
+            raise ValueError(f"{path}: palette index past the "
+                             f"{len(palette)} PLTE entries")
+        return palette[values]
+    if ctype == 0 and depth == 16:
+        gray = np.minimum(samples[..., 0], 255).astype(np.uint8)
+    elif ctype == 0 and depth < 8:
+        gray = (samples[..., 0].astype(np.int32) * 255
+                // ((1 << depth) - 1)).astype(np.uint8)
+    else:
+        color = samples[..., :1] if ctype in (0, 4) else samples[..., :3]
+        if depth == 16:
+            color = color >> 8
+        color = color.astype(np.uint8)
+        if ctype == 2 or ctype == 6:
+            return np.ascontiguousarray(color)
+        gray = color[..., 0]
+    return np.repeat(gray[..., None], 3, axis=2)
 
 
 def read_png(path: str) -> np.ndarray:
-    """[H, W, 3] uint8 RGB of a PNG file, as PIL's `convert("RGB")` gives it.
-    Raises ValueError on a malformed file and NotImplementedError on an
-    interlaced or 16-bit one."""
+    """[H, W, 3] uint8 RGB of a PNG file, as Pillow's `convert("RGB")`
+    gives it. Raises ValueError on a malformed or unsupported file."""
     with open(path, "rb") as f:
         data = f.read()
     header = palette = None
@@ -108,39 +173,17 @@ def read_png(path: str) -> np.ndarray:
     if ctype not in _COLOR_TYPES:
         raise ValueError(f"{path}: unknown PNG color type {ctype}")
     channels, depths = _COLOR_TYPES[ctype]
-    if depth == 16:
-        raise NotImplementedError(f"{path}: 16-bit PNG is not supported")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNG is not supported")
     if (depth not in depths or compression or filter_method
-            or not width or not height):
+            or interlace not in (0, 1) or not width or not height):
         raise ValueError(f"{path}: unsupported IHDR {header}")
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette image without PLTE")
-    rowbytes = (width * channels * depth + 7) // 8
     try:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
         raise ValueError(f"{path}: image data does not inflate: {e}") from None
-    if raw.size < height * (rowbytes + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data, "
-                         f"{height * (rowbytes + 1)} expected")
-    rows = _unfilter(raw, height, rowbytes, max(1, channels * depth // 8))
-    if ctype == 2:
-        return rows.reshape(height, width, 3)
-    if ctype == 6:
-        return np.ascontiguousarray(rows.reshape(height, width, 4)[..., :3])
-    if ctype == 4:
-        gray = rows.reshape(height, width, 2)[..., 0]
-    else:
-        values = _unpack(rows, width, depth)
-        if ctype == 3:
-            if values.max() >= len(palette):
-                raise ValueError(f"{path}: palette index past the "
-                                 f"{len(palette)} PLTE entries")
-            return palette[values]
-        gray = (values.astype(np.int32) * 255 // ((1 << depth) - 1)).astype(np.uint8)
-    return np.repeat(gray[..., None], 3, axis=2)
+    samples = _decode(raw, width, height, depth, channels, interlace, path)
+    return _to_rgb(samples, ctype, depth, palette, path)
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:

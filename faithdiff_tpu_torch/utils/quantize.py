@@ -1,5 +1,10 @@
-"""Weight-only quantisation for the captioner's LLaMA projections
-(counterpart of `faithdiff_tpu/utils/quantize.py:55-277`).
+"""Weight quantisation (counterpart of `faithdiff_tpu/utils/quantize.py`).
+
+- fp8 (`restore --use_fp8`): UNet weights stored as float8_e4m3fn, picked
+  and rounded as the JAX package's `quantize_params_fp8` picks and rounds
+  them; `models.layers.store_fp8_` holds them in a model and upcasts each
+  where its layer runs. `make_delta` / `apply_delta` are the checkpoint
+  delta utilities of the same module.
 
 - int8: per-output-channel absmax, `values` int8 [in, out] and `scales`
   f32 [out], dequantised in the matmul epilogue (plain torch, as XLA ran it).
@@ -15,10 +20,78 @@ codes with the first index on ties, absmax floored at 1e-12.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .convert import flax_param_path
+
+# flax path substrings kept at their dtype (the reference keeps the
+# denoise encoder and the norms out of fp8: fp8 norms destroy quality)
+FP8_SKIP = ("denoise_encoder", "norm", "ln_", "scale", "bias")
+# ml_dtypes rounds a value of magnitude above 464 (the midpoint between
+# 448, e4m3fn's largest finite value, and 480) to NaN, where torch saturates
+# to 448; the JAX package's cast is ml_dtypes'
+_FP8_NAN_ABOVE = 464.0
+
+
+def is_fp8_weight(key: str, ndim: int) -> bool:
+    """Whether `quantize_params_fp8` casts the UNet state-dict entry `key`:
+    the JAX rule, on the lowercased flax path of the entry ("params/" +
+    its path joined by "/"), which no substring of FP8_SKIP may be in."""
+    name = "/".join(("params",) + flax_param_path(key, ndim)).lower()
+    return not any(s in name for s in FP8_SKIP)
+
+
+def to_fp8(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The JAX factory's two roundings: to the compute `dtype`, then to
+    float8_e4m3fn, with ml_dtypes' overflow (NaN above 464, inf and NaN
+    included) in place of torch's saturation."""
+    x = t.to(dtype)
+    x = torch.where(x.abs() <= _FP8_NAN_ABOVE, x, torch.nan)
+    return x.to(torch.float8_e4m3fn)
+
+
+@torch.no_grad()
+def quantize_params_fp8(state_dict: Mapping[str, torch.Tensor],
+                        dtype: torch.dtype = torch.bfloat16
+                        ) -> Dict[str, torch.Tensor]:
+    """A UNet state dict with the weights `is_fp8_weight` picks cast by
+    `to_fp8`; every other entry as it was."""
+    return {k: (to_fp8(v, dtype) if v.is_floating_point()
+                and is_fp8_weight(k, v.ndim) else v)
+            for k, v in state_dict.items()}
+
+
+def dequantize_params(state_dict: Mapping[str, torch.Tensor],
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> Dict[str, torch.Tensor]:
+    """fp8 entries upcast to `dtype` (exact); the rest as they were."""
+    return {k: v.to(dtype) if v.dtype == torch.float8_e4m3fn else v
+            for k, v in state_dict.items()}
+
+
+def param_bytes(state_dict: Mapping[str, torch.Tensor]) -> int:
+    return sum(v.numel() * v.element_size() for v in state_dict.values())
+
+
+def make_delta(base: Mapping[str, torch.Tensor],
+               target: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """target - base per entry, in fp32, cast to target's dtype; an entry
+    whose shape changed (embedding rows added by finetuning) is kept as the
+    target's."""
+    return {k: t if base[k].shape != t.shape
+            else (t.float() - base[k].float()).to(t.dtype)
+            for k, t in target.items()}
+
+
+def apply_delta(base: Mapping[str, torch.Tensor],
+                delta: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """base + delta per entry, in fp32, cast to delta's dtype."""
+    return {k: d if base[k].shape != d.shape
+            else (base[k].float() + d.float()).to(d.dtype)
+            for k, d in delta.items()}
 
 # the 16 NF4 levels: quantiles of N(0, 1) normalised to [-1, 1]
 # (Dettmers et al., "QLoRA", Table A.1 / bitsandbytes functional.py)

@@ -2,6 +2,7 @@
 numpy, NHWC <-> NCHW conversions between the two packages, and a LLaMA
 SentencePiece vocabulary with transformers' fast tokenizer of it."""
 import collections
+import functools
 
 import jax
 import numpy as np
@@ -41,9 +42,11 @@ def nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
+@functools.lru_cache(maxsize=1)
 def tiny_restore_params():
     """Flax params of the JAX package's tiny UNet, VAE and denoise encoder,
-    made with numpy (seeds 0, 1, 2)."""
+    made with numpy (seeds 0, 1, 2). Made once a process (tracing the three
+    inits takes seconds); callers do not change them in place."""
     import jax.numpy as jnp
 
     from faithdiff_tpu.config import (tiny_denoise_encoder_config,

@@ -400,8 +400,11 @@ def test_restore_skips_existing_and_says_what_it_ignores(tmp_path):
     assert os.stat(tmp_path / "out" / "b.png").st_mtime_ns == before
 
 
+# `--use_fp8` is served: with it, the multi-GPU flag is still refused
+# before any weight is read
 @pytest.mark.parametrize("flags", [
-    ["--use_fp8"], ["--tile_devices", "2"], ["jpeg"]], ids=lambda f: f[0])
+    ["--use_fp8", "--tile_devices", "4"], ["--tile_devices", "2"], ["jpeg"]],
+    ids=lambda f: f[0])
 def test_restore_refuses_what_it_does_not_serve(tmp_path, flags):
     os.makedirs(tmp_path / "in")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "a.png")

@@ -175,14 +175,18 @@ def test_png_encoder_read_by_pil(tmp_path, shape):
 
 
 def test_png_refuses_interlaced_16_bit_and_corrupt(tmp_path):
+    """Interlaced and 16-bit files decode (`test_torch_png_formats.py`);
+    what is refused is an interlace method past Adam7, a 16-bit palette,
+    and a corrupt chunk."""
     path = tmp_path / "i.png"
-    path.write_bytes(_encode(RGB, [0] * RGB.shape[0], interlace=1))
-    with pytest.raises(NotImplementedError, match="interlaced"):
+    path.write_bytes(_encode(RGB, [0] * RGB.shape[0], interlace=2))
+    with pytest.raises(ValueError, match="unsupported IHDR"):
         png.read_png(str(path))
-    Image.fromarray(RNG.integers(0, 65535, (5, 6)).astype(np.uint16)).save(
-        tmp_path / "d.png")
-    with pytest.raises(NotImplementedError, match="16-bit"):
-        png.read_png(str(tmp_path / "d.png"))
+    pal = RNG.integers(0, 256, (5, 6, 2), dtype=np.uint8)
+    data = bytearray(_encode(pal, [0] * 5, depth=16, ctype=3))
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="unsupported IHDR"):
+        png.read_png(str(path))
     data = bytearray(_encode(RGB, [0] * RGB.shape[0]))
     data[40] ^= 0xFF                                  # inside IDAT
     path.write_bytes(bytes(data))

@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "faithdiff_tpu", "PIL",
 
 def _port_sources():
     files = sorted((ROOT / "faithdiff_tpu_torch").rglob("*.py"))
-    assert len(files) >= 61, files
+    assert len(files) >= 66, files
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -71,7 +71,11 @@ def test_importing_the_port_loads_no_jax():
         "faithdiff_tpu_torch.training.logging, "
         "faithdiff_tpu_torch.training.losses, "
         "faithdiff_tpu_torch.training.runner, faithdiff_tpu_torch.data, "
-        "faithdiff_tpu_torch.data.dataset, faithdiff_tpu_torch.data.prefetch\n"
+        "faithdiff_tpu_torch.data.dataset, faithdiff_tpu_torch.data.prefetch, "
+        "faithdiff_tpu_torch.data.jpeg, faithdiff_tpu_torch.data.degradation, "
+        "faithdiff_tpu_torch.schedulers.ddim, "
+        "faithdiff_tpu_torch.training.caption_data, "
+        "faithdiff_tpu_torch.training.caption_train\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
