@@ -75,8 +75,18 @@
    Adam7-interlaced PNG (written by this script), each restored by the
    CLI to a PNG identical in every byte to `cli_restore`'s output. The
    in-memory pipelines of the CLI phases run the
-   CLI's `TILE_CHUNK`. The weight files are deleted afterwards, also when
-   a phase fails.
+   CLI's `TILE_CHUNK`. `metrics`: seeded weights of the seven learned IQA
+   networks at their published widths (LPIPS AlexNet and VGG16, DISTS,
+   the pt_inception FID net as flax msgpack and as a torchvision `.pth`,
+   CLIP ViT-L/14 with its prompts, MUSIQ, MANIQA, PaQ-2-PiQ) written in
+   the JAX harness's layouts by the port's writers, NIQE fitted with
+   `--fit_niqe_dir`, then `cli.main(["metrics", ..., "--device", "cuda"])`
+   over 4 SR / GT PNG pairs at 1024x1536 (the first SR `cli_restore`'s
+   output, one GT at another size): all ten metrics finite, none
+   UNAVAILABLE, no counted kernel launched; PSNR / SSIM against float64
+   numpy; each network on the card against the port's CPU run; ms per
+   image by metric, NIQE's host seconds, wall seconds, peak memory. The
+   weight files are deleted afterwards, also when a phase fails.
 5b''. `restore_large`: the same pipeline on a 2048x3072 uint8 image (a
    1024x1536 photo at the CLI's default --upscale 2): 15 latent tiles, UNet
    batch 30, 20 steps, the default attention path; checks the output
@@ -119,7 +129,13 @@
    on the prefill route for the prefill and the decode route for each
    decode forward;
    then profiles the prefill and the last decode step as step 5 profiles
-   the UNet.
+   the UNet. `vqa`: the same nf4 agent answers 4 questions over 2 PNGs
+   through `eval.vqa.run_vqa` and `eval.generators.run_vqa_loader` (the
+   same answers) and a 2-row MMBench TSV of base64 PNGs through
+   `run_mmbench` (6 circular rounds), 12 new tokens an answer; the POPE
+   and TextVQA evaluators and the circular scorer read the answers; every
+   forward launches the NF4 kernel 280 times on its route and nothing
+   else counted; answers / s and decode ms a step.
 8b. `caption_int8`: the same caption with `quant="int8"` (the caption
    CLI's default, plain torch): the same checks, no counted launch, and a
    profile of its last decode step. `cli_caption`: seeded LLaVA-1.5-13B
@@ -180,7 +196,7 @@
    on the machine (information, not a check).
 10. Prints the card line, a JSON line listing every ported kernel (with
    its launches per training micro-step of both stages, and on the fp8
-   and Karras restores and a caption training step), then a
+   and Karras restores, the VQA phase and a caption training step), then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
 
@@ -190,6 +206,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -1927,7 +1944,8 @@ def run_caption(torch, quant: str = "nf4"):
     LLaMA, `quant` "nf4" or "int8", ViT-L/14-336), one caption_batch of two
     images. nf4: 280 NF4 launches a forward, on the prefill route for the
     prefill and the decode route after it; int8 (plain torch, as XLA ran
-    the JAX package's int8 matmul): no counted launch at all."""
+    the JAX package's int8 matmul): no counted launch at all. Returns the
+    launch counts and the agent (the `vqa` phase reuses the nf4 one)."""
     import numpy as np
 
     from faithdiff_tpu_torch.captioner import (CLIPVisionConfig, LlamaConfig,
@@ -2040,7 +2058,8 @@ def run_caption(torch, quant: str = "nf4"):
         profile_call(torch, "profile_decode", agent.llama, *last)
     else:
         profile_call(torch, f"profile_decode_{quant}", agent.llama, *last)
-    return counts
+    del first, last
+    return counts, agent
 
 
 def check_forward_routes(calls, per_forward: int, label: str) -> None:
@@ -3610,6 +3629,450 @@ def jpeg_probe() -> dict:
     return result
 
 
+# `metrics`: an SR and a GT dir of METRICS_PAIRS PNG pairs at the restore's
+# 1024x1536 (the last GT at another size, for the harness's BICUBIC
+# resize), NIQE fitted on NIQE_PRISTINE[0] seeded textures of
+# NIQE_PRISTINE[1]^2
+METRICS_PIXELS, METRICS_PAIRS, METRICS_GT_OTHER = (1024, 1536), 4, (960, 1440)
+NIQE_PRISTINE = (3, 384)
+# a learned network on the card (fp32, TF32 off, cuDNN's and cuBLAS's own
+# algorithms) against the port's CPU run of the same weights and input:
+# scores within METRICS_TOL * (1 + |cpu|), FID features within
+# METRICS_TOL * (1 + max|cpu|). The CPU runs the convnets on a
+# METRICS_CROP^2 crop, MANIQA on one of its five crops and CLIPIQA's
+# ViT-L/14 at CLIPIQA_CPU_PIXELS (20x20 patches, the position grid
+# interpolated as at 512)
+METRICS_TOL = 1e-3
+METRICS_CROP = 256
+CLIPIQA_CPU_PIXELS = 280
+PSNR_SSIM_TOL = 1e-5                     # against float64 numpy
+# `vqa`: new tokens an answer (the caption phase's agent, its other
+# defaults kept)
+VQA_NEW_TOKENS = 12
+CLIP_BOS, CLIP_EOS = 49406, 49407
+
+
+def seeded_png(rng, hw, cell: int = 16):
+    """A uint8 image with structure at two scales: blocks of `cell` pixels
+    plus noise."""
+    import numpy as np
+
+    h, w = hw
+    coarse = rng.integers(0, 256, (-(-h // cell), -(-w // cell), 3))
+    img = np.kron(coarse, np.ones((cell, cell, 1)))[:h, :w]
+    return np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_metric_weights(torch, root: str) -> dict:
+    """Seeded weights of the seven learned metric networks at their
+    published widths, written in the JAX harness's layouts by the port's
+    writers (the card's machine has no JAX to write them with): flat npz
+    for LPIPS (AlexNet, and VGG16 beside it), DISTS, PaQ-2-PiQ (ResNet-18),
+    MUSIQ (14 x 384), MANIQA (ViT-B/8, TAB, Swin) and CLIPIQA (ViT-L/14 and
+    its text tower, with `_config` and `_prompt_ids`); the FID InceptionV3
+    as flax msgpack, and once more as a torchvision-named `.pth`.
+    Returns {name: path}."""
+    import numpy as np
+
+    from faithdiff_tpu_torch.eval import (clipiqa, dists, fid, lpips, maniqa,
+                                          musiq, paq2piq)
+
+    seeded, tree = lpips.seeded_init_, lpips.tree_from_module
+    os.makedirs(root, exist_ok=True)
+    paths = {k: os.path.join(root, k + ".npz") for k in
+             ("lpips", "lpips_vgg", "dists", "paq2piq", "musiq", "maniqa", "clipiqa", "fid")}
+    lpips.save_lpips_params(tree(seeded(lpips.LPIPS("alex"), 1, ("lin",))), paths["lpips"])
+    lpips.save_lpips_params(tree(seeded(lpips.LPIPS("vgg"), 2, ("lin",))),
+                            paths["lpips_vgg"])
+    lpips.save_lpips_params(tree(seeded(dists.DISTS(), 3, ("alpha", "beta"))),
+                            paths["dists"])
+    lpips.save_lpips_params(tree(seeded(paq2piq.PaQ2PiQ(), 4)), paths["paq2piq"])
+    musiq.save_musiq_weights(tree(seeded(musiq.MUSIQ(musiq.MUSIQConfig()), 5)),
+                             paths["musiq"], musiq.MUSIQConfig())
+    maniqa.save_maniqa_weights(tree(seeded(maniqa.MANIQA(maniqa.MANIQAConfig()), 6)),
+                               paths["maniqa"], maniqa.MANIQAConfig())
+    vcfg, tcfg = clipiqa.clip_vit_l14_configs()
+    model = seeded(clipiqa.CLIPIQA(vcfg, tcfg), 7)
+    with torch.no_grad():
+        model.logit_scale.fill_(math.log(100.0))
+    ids = np.full((2, 77), CLIP_EOS, np.int32)          # "good / bad photo ."
+    ids[:, 0], ids[0, 1:4], ids[1, 1:4] = CLIP_BOS, (1125, 1929, 269), (2103, 1929, 269)
+    clipiqa.save_clipiqa_weights(clipiqa.clipiqa_tree(model), paths["clipiqa"],
+                                 vcfg, tcfg, prompt_ids=ids)
+    del model
+    inception = tree(seeded(fid.InceptionV3Features(), 8))
+    with open(paths["fid"], "wb") as f:
+        f.write(fid.write_flax_msgpack(inception))
+    paths["fid_pth_route"] = os.path.join(root, "tv", "inception_v3_fid.npz")
+    os.makedirs(os.path.dirname(paths["fid_pth_route"]))
+    torch.save(fid.torchvision_state_dict(inception),
+               paths["fid_pth_route"].replace(".npz", ".pth"))
+    return paths
+
+
+def numpy_psnr_ssim(a, b):
+    """float64 PSNR and the harness's SSIM (per RGB channel, 11x11 Gaussian
+    of sigma 1.5, VALID) of [H, W, 3] images in [0, 1]."""
+    import numpy as np
+    from scipy.signal import fftconvolve
+
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    psnr = 10 * np.log10(1.0 / max(np.mean((a - b) ** 2), 1e-12))
+    x = np.arange(11) - 5
+    g = np.exp(-x ** 2 / (2 * 1.5 ** 2))
+    win = np.outer(g / g.sum(), g / g.sum())
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    vals = []
+    for ch in range(3):
+        f = lambda z: fftconvolve(z, win, mode="valid")  # noqa: E731
+        p, q = a[..., ch], b[..., ch]
+        mu_a, mu_b = f(p), f(q)
+        sa, sb, sab = f(p * p) - mu_a ** 2, f(q * q) - mu_b ** 2, f(p * q) - mu_a * mu_b
+        vals.append(((2 * mu_a * mu_b + c1) * (2 * sab + c2))
+                    / ((mu_a ** 2 + mu_b ** 2 + c1) * (sa + sb + c2)))
+    return psnr, float(np.mean(vals))
+
+
+def run_metrics(torch, root: str) -> dict:
+    """`cli.main(["metrics", ...])` on the card with every weights flag:
+    the ten metrics of the reference protocol over METRICS_PAIRS SR / GT
+    PNG pairs at 1024x1536 (the first SR the `cli_restore` phase's output
+    when it is at hand), each with a finite mean and none UNAVAILABLE, no
+    hand-written kernel launched; PSNR / SSIM against float64 numpy; each
+    learned network on the card against the port's CPU run; ms per image
+    by metric (CUDA events around the network, host preprocessing apart),
+    NIQE's host seconds, the command's wall seconds and peak memory."""
+    import io
+
+    import numpy as np
+
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.eval import (REFERENCE_METRICS, clipiqa, dists, fid,
+                                          lpips, maniqa, metrics, musiq, niqe,
+                                          paq2piq)
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils.png import read_png, write_png
+
+    base = os.path.join(root, "metrics")
+    t0 = time.perf_counter()
+    paths = write_metric_weights(torch, base)
+    write_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    dirs = {k: os.path.join(base, k) for k in ("sr", "gt", "pristine")}
+    for d in dirs.values():
+        os.makedirs(d)
+    restored = os.path.join(root, "out", "photo.png")
+    srs, gts = [], []
+    for i in range(METRICS_PAIRS):
+        sr = (read_png(restored) if i == 0 and os.path.exists(restored)
+              else seeded_png(rng, METRICS_PIXELS))
+        if sr.shape[:2] != METRICS_PIXELS:
+            fail(f"metrics: SR {i} is {sr.shape}")
+        other = i == METRICS_PAIRS - 1
+        gt = (seeded_png(rng, METRICS_GT_OTHER) if other else
+              np.clip(sr + rng.normal(0, 8, sr.shape), 0, 255).astype(np.uint8))
+        write_png(os.path.join(dirs["sr"], f"img{i}.png"), sr)
+        write_png(os.path.join(dirs["gt"], f"img{i}.png"), gt)
+        srs.append(sr)
+        gts.append(gt)
+    for i in range(NIQE_PRISTINE[0]):
+        write_png(os.path.join(dirs["pristine"], f"p{i}.png"),
+                  seeded_png(rng, (NIQE_PRISTINE[1],) * 2, cell=4))
+    niqe_path = os.path.join(base, "niqe.npz")
+    t0 = time.perf_counter()
+    if cli.main(["metrics", "--fit_niqe_dir", dirs["pristine"],
+                 "--niqe_params", niqe_path]) != 0:
+        fail("metrics --fit_niqe_dir failed")
+    fit_s = time.perf_counter() - t0
+
+    argv = ["metrics", "--sr_dir", dirs["sr"], "--gt_dir", dirs["gt"],
+            "--niqe_params", niqe_path, "--fid_weights", paths["fid"],
+            "--lpips_weights", paths["lpips"], "--dists_weights", paths["dists"],
+            "--clipiqa_weights", paths["clipiqa"], "--musiq_weights", paths["musiq"],
+            "--paq2piq_weights", paths["paq2piq"], "--maniqa_weights", paths["maniqa"],
+            "--device", "cuda", "--log", os.path.join(base, "metrics.log")]
+    out = io.StringIO()
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(_build.launches)
+    print(out.getvalue(), end="", flush=True)
+    means = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or means.pop("_unavailable") != {}:
+        fail(f"metrics: rc {rc}, unavailable metrics in {out.getvalue()[-800:]!r}")
+    missing = [m for m in REFERENCE_METRICS
+               if not (m in means and math.isfinite(means[m]))]
+    if missing:
+        fail(f"metrics: no finite mean for {missing}")
+    if launches:
+        fail(f"metrics: the IQA networks launched counted kernels {launches}")
+
+    # PSNR / SSIM on the card against float64 numpy (the GT as the harness
+    # resizes it)
+    from faithdiff_tpu_torch.utils.resample import resize_bicubic
+
+    ps = []
+    for sr, gt in zip(srs, gts):
+        a = sr.astype(np.float32) / 255.0
+        b = gt.astype(np.float32) / 255.0
+        if b.shape != a.shape:
+            b = resize_bicubic(np.uint8(b * 255), (a.shape[1], a.shape[0])
+                               ).astype(np.float32) / 255.0
+        ta, tb = torch.as_tensor(a, device="cuda"), torch.as_tensor(b, device="cuda")
+        got = (float(metrics.psnr(ta, tb)), float(metrics.ssim(ta, tb)))
+        want = numpy_psnr_ssim(a, b)
+        if max(abs(g - w) for g, w in zip(got, want)) > PSNR_SSIM_TOL:
+            fail(f"metrics: card PSNR / SSIM {got}, float64 numpy {want}")
+        ps.append(got)
+    for k, j in (("psnr", 0), ("ssim", 1)):
+        if abs(means[k] - float(np.mean([p[j] for p in ps]))) > PSNR_SSIM_TOL:
+            fail(f"metrics: the command's mean {k} {means[k]} is not the pairs'")
+
+    # each learned network: ms per image on the card, and the card against
+    # the CPU on the same input
+    c = METRICS_CROP
+    sr01 = [s.astype(np.float32) / 255.0 for s in srs]
+    gt01 = [g.astype(np.float32) / 255.0 for g in gts[:-1]]
+    nets = {
+        "lpips": (lpips.make_lpips, (paths["lpips"],), True),
+        "lpips_vgg": (functools.partial(lpips.make_lpips, net="vgg"),
+                      (paths["lpips_vgg"],), True),
+        "dists": (dists.make_dists, (paths["dists"],), True),
+        "paq2piq": (paq2piq.make_paq2piq, (paths["paq2piq"],), False),
+        "musiq": (musiq.make_musiq, (paths["musiq"],), False),
+        "maniqa-pipal": (maniqa.make_maniqa, (paths["maniqa"],), False),
+        "clipiqa+_vitL14_512": (clipiqa.make_clipiqa, (paths["clipiqa"],), False),
+    }
+    timing, errors = {}, {}
+    for name, (make, args, pair) in nets.items():
+        card_fn, cpu_fn = make(*args, device="cuda"), make(*args, device="cpu")
+        host, dev = [], []
+        for i in range(len(gt01) if pair else len(sr01)):
+            call = (sr01[i], gt01[i]) if pair else (sr01[i],)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            inputs = card_fn.prepare(*call)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - h0)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            card_fn.net(*inputs)
+            end.record()
+            torch.cuda.synchronize()
+            dev.append(start.elapsed_time(end))
+        if pair:
+            sample = (sr01[0][:c, :c], gt01[0][:c, :c])
+            got, want = card_fn(*sample), cpu_fn(*sample)
+        elif name == "paq2piq":
+            got, want = card_fn(sr01[0][:c, :c + c // 2]), cpu_fn(sr01[0][:c, :c + c // 2])
+        elif name == "musiq":
+            got, want = card_fn(sr01[0]), cpu_fn(sr01[0])
+        elif name == "maniqa-pipal":
+            (x,) = card_fn.prepare(sr01[0])
+            got, want = float(card_fn.net(x[:1])[0]), float(cpu_fn.net(x[:1].cpu())[0])
+        else:
+            x = clipiqa_input(torch, srs[0], CLIPIQA_CPU_PIXELS)
+            got = float(card_fn.net(x.cuda())[0])
+            want = float(cpu_fn.net(x)[0])
+        err = abs(got - want)
+        if not (math.isfinite(got) and err <= METRICS_TOL * (1 + abs(want))):
+            fail(f"metrics: {name} card {got} against CPU {want}")
+        errors[name] = dict(card=got, cpu=want, abs_err=err)
+        timing[name] = dict(ms_per_image=median(dev), host_ms_per_image=1e3 * median(host))
+        del card_fn, cpu_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    card_fid, cpu_fid = (fid.make_fid_features(paths["fid"], device=d) for d in ("cuda", "cpu"))
+    pth_fid = fid.make_fid_features(paths["fid_pth_route"], device="cuda")
+    host, dev = [], []
+    for im in sr01:
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        x = card_fid.prepare([im])
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - h0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        card_fid.net(x)
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    timing["fid"] = dict(ms_per_image=median(dev), host_ms_per_image=1e3 * median(host))
+    got, want = card_fid(sr01[:1]), cpu_fid(sr01[:1])
+    err = float(np.abs(got - want).max())
+    if err > METRICS_TOL * (1 + float(np.abs(want).max())):
+        fail(f"metrics: FID features card against CPU, max error {err}")
+    if not np.array_equal(pth_fid(sr01[:1]), got):
+        fail("metrics: the .pth route's FID features are not the msgpack route's")
+    errors["fid_features"] = dict(abs_err=err, max_abs_cpu=float(np.abs(want).max()))
+    niqe_fn = niqe.make_niqe_metric(niqe_path)
+    niqe_s = []
+    for im in sr01:
+        h0 = time.perf_counter()
+        niqe_fn(im)
+        niqe_s.append(time.perf_counter() - h0)
+    result = dict(
+        pixels=list(METRICS_PIXELS), pairs=METRICS_PAIRS, means=means,
+        wall_s=wall_s, write_weights_s=write_s, niqe_fit_s=fit_s,
+        niqe_host_s_per_image=median(niqe_s), peak_mem_gib=peak,
+        metric_ms=timing, card_vs_cpu=errors, tol=METRICS_TOL,
+        sr0_from_restore=os.path.exists(restored))
+    print("metrics", json.dumps(result), flush=True)
+    return result
+
+
+def clipiqa_input(torch, img, size: int):
+    """CLIPIQA's preprocessing (Pillow BICUBIC to `size`, CLIP's
+    normalisation) of a uint8 image, as a [1, size, size, 3] CPU tensor."""
+    from faithdiff_tpu_torch.captioner.clip_vision import CLIP_MEAN, CLIP_STD
+    from faithdiff_tpu_torch.utils.resample import resize_bicubic
+
+    x = resize_bicubic(img, (size, size)).astype("float32") / 255.0
+    return torch.from_numpy((x - CLIP_MEAN) / CLIP_STD)[None]
+
+
+def run_vqa(torch, agent, root: str) -> dict:
+    """The VQA harnesses on the caption phase's LLaVA-1.5-13B nf4 agent:
+    4 questions over 2 PNGs through `eval.vqa.run_vqa` and
+    `eval.generators.run_vqa_loader` (the same records), a 2-row MMBench
+    TSV of base64 PNGs through `run_mmbench` (4 + 2 circular rounds), the
+    POPE and TextVQA evaluators and the circular scorer over the answers; each
+    forward launches the NF4 kernel 280 times on its route (the prefill
+    route for a question's prompt, the decode route after it) and no other
+    counted kernel. Prints answers / s and decode ms a step."""
+    import base64
+    import csv
+    import io
+
+    import numpy as np
+
+    from faithdiff_tpu_torch.eval import drivers, generators, vqa
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils.png import write_png
+
+    base = os.path.join(root, "vqa")
+    imgs = os.path.join(base, "images")
+    os.makedirs(imgs)
+    rng = np.random.default_rng(31)
+    for i, hw in enumerate([(336, 448), (448, 336)]):
+        write_png(os.path.join(imgs, f"im{i}.png"), seeded_png(rng, hw))
+    texts = ["Is there a cat in the image?", "What colour is the door?",
+             "Is there a tree in the image?", "What is written on the sign?"]
+    suffix = "\nAnswer the question using a single word or phrase."
+    qs = [{"question_id": k, "image": f"im{k % 2}.png", "text": t + suffix,
+           "category": ("popular", "random")[k % 2]} for k, t in enumerate(texts)]
+    qfile = os.path.join(base, "questions.jsonl")
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in qs)
+    tsv = os.path.join(base, "mmbench.tsv")
+    with open(tsv, "w", newline="") as f:
+        w = csv.DictWriter(f, delimiter="\t", fieldnames=[
+            "index", "question", "hint", "A", "B", "C", "D", "image", "answer"])
+        w.writeheader()
+        for idx, (opts, ans) in enumerate([(("cat", "dog", "bird", "fish"), "B"),
+                                           (("day", "night", "", ""), "A")]):
+            png_path = os.path.join(base, f"mm{idx}.png")
+            write_png(png_path, seeded_png(rng, (96, 96)))
+            with open(png_path, "rb") as png:
+                data = base64.b64encode(png.read()).decode()
+            w.writerow(dict(index=f"q{idx}", question="Which one is shown?",
+                            hint="nan" if idx else "Look closely.", A=opts[0], B=opts[1],
+                            C=opts[2], D=opts[3], answer=ans, image=data))
+
+    before = agent.max_new_tokens
+    agent.max_new_tokens = VQA_NEW_TOKENS
+    calls = []
+
+    def pre(module, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        calls.append([args[0].shape[1], ev, None, dict(_build.launches)])
+
+    def post(module, args, out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        b = calls[-1][3]
+        calls[-1][2:] = [ev, {k: v - b.get(k, 0) for k, v in _build.launches.items()
+                              if v != b.get(k, 0)}]
+
+    hooks = [agent.llama.register_forward_pre_hook(pre),
+             agent.llama.register_forward_hook(post)]
+    answers = {k: os.path.join(base, f"{k}.jsonl") for k in ("vqa", "loader", "mmbench")}
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        n = [vqa.run_vqa(agent, qfile, imgs, answers["vqa"]),
+             generators.run_vqa_loader(agent, qfile, imgs, answers["loader"]),
+             generators.run_mmbench(agent, tsv, answers["mmbench"])]
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+        agent.max_new_tokens = before
+    wall_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+
+    if n != [4, 4, 6]:
+        fail(f"vqa: answers written {n}, expected [4, 4, 6]")
+    rows = {k: [json.loads(line) for line in open(p)] for k, p in answers.items()}
+    for k, recs in rows.items():
+        for r in recs:
+            if (r.get("model_id") != "faithdiff-tpu-captioner"
+                    or not isinstance(r.get("text"), str) or "prompt" not in r):
+                fail(f"vqa: malformed {k} record {r}")
+    if [r["text"] for r in rows["vqa"]] != [r["text"] for r in rows["loader"]]:
+        fail("vqa: the prefetching loader's answers are not run_vqa's")
+    prefill = {"nf4_matmul": NF4_PER_FORWARD, "nf4_gemm": NF4_PER_FORWARD}
+    decode = {"nf4_matmul": NF4_PER_FORWARD, "nf4_gemv": NF4_PER_FORWARD}
+    bad = [c[3] for c in calls if c[3] != (prefill if c[0] > 1 else decode)]
+    if bad or not calls:
+        fail(f"vqa: per-forward launches off their routes: {bad[:3]}")
+    n_pre = sum(c[0] > 1 for c in calls)
+    if n_pre != 14 or set(counts) != {"nf4_matmul", "nf4_gemm", "nf4_gemv"}:
+        fail(f"vqa: {n_pre} prefills, launches {counts}")
+
+    # the POPE and TextVQA evaluators score the answers
+    pope = os.path.join(base, "pope")
+    os.makedirs(pope)
+    for cat in ("popular", "random"):
+        with open(os.path.join(pope, f"coco_pope_{cat}.json"), "w") as f:
+            f.writelines(json.dumps({"label": lab}) + "\n" for lab in ("yes", "no"))
+    ann = os.path.join(base, "textvqa.json")
+    with open(ann, "w") as f:
+        json.dump({"data": [{"image_id": q["question_id"], "question": t,
+                             "answers": ["yes"] * 10} for q, t in zip(qs, texts)]}, f)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = (drivers.main(["pope", "--annotation-dir", pope, "--question-file", qfile,
+                            "--result-file", answers["vqa"]])
+              + drivers.main(["textvqa", "--annotation-file", ann,
+                              "--result-file", answers["vqa"]]))
+    report = out.getvalue()
+    if rc or report.count("Accuracy:") != 3 or "Samples: 4" not in report:
+        fail(f"vqa: POPE / TextVQA did not score the answers: {report!r}")
+    circular = generators.mmbench_circular_accuracy(rows["mmbench"], {"q0": "B", "q1": "A"})
+    if circular["count"] != 2:
+        fail(f"vqa: circular scorer counted {circular}")
+    dec = [c for c in calls if c[0] == 1]
+    result = dict(answers=sum(n), wall_s=wall_s, answers_per_s=sum(n) / wall_s,
+                  forwards=len(calls), prefills=n_pre,
+                  decode_ms_per_step=(sum(c[1].elapsed_time(c[2]) for c in dec)
+                                      / max(len(dec), 1)),
+                  prefill_ms=median([c[1].elapsed_time(c[2]) for c in calls if c[0] > 1]),
+                  launches=counts, nf4_per_forward=NF4_PER_FORWARD,
+                  mmbench=circular, answers_sample=[r["text"] for r in rows["vqa"][:2]])
+    print("vqa", json.dumps(result), flush=True)
+    return counts
+
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "faithdiff_tpu_torch")):
@@ -3684,6 +4147,8 @@ def main() -> int:
             run_cli_restore_fp8(torch, pipe8, root, ckpt)
         with phase("png_formats"):
             run_png_formats(torch, root, ckpt)
+        with phase("metrics"):
+            run_metrics(torch, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del pipe8
@@ -3731,7 +4196,15 @@ def main() -> int:
     with phase("caption"):
         check_caption_small(torch)
         check_llama_prefill(torch)
-        caption_counts = run_caption(torch)
+        caption_counts, agent = run_caption(torch)
+    # the VQA files go whether the phase passes or fails
+    vqa_root = os.path.join(_build.BUILD_DIR, f"vqa_{os.getpid()}")
+    try:
+        with phase("vqa"):
+            vqa_counts = run_vqa(torch, agent, vqa_root)
+    finally:
+        shutil.rmtree(vqa_root, ignore_errors=True)
+    del agent
     gc.collect()
     torch.cuda.empty_cache()
     with phase("caption_int8"):
@@ -3800,6 +4273,7 @@ def main() -> int:
                     path_launches={
                         "restore_fp8": fp8_counts.get(name, 0),
                         "restore_karras": karras_counts.get(name, 0),
+                        "vqa": vqa_counts.get(name, 0),
                         "caption_train_step": caption_step.get(name, 0)})
 
     kernels = [

@@ -18,6 +18,9 @@ NVIDIA H100.
                                      quantisation, weight carry
 - ``faithdiff_tpu_torch.training``   prompt embeddings precomputed for
                                      training (``cli embed``)
+- ``faithdiff_tpu_torch.eval``       the IQA metric harness (``cli.py
+                                     metrics``) and the captioner's VQA /
+                                     benchmark / review harnesses
 - ``faithdiff_tpu_torch.scripts``    the attention-variant benchmark
 
 It imports torch, numpy and the standard library only. Entry points run on

@@ -54,6 +54,10 @@ def tiny_vision_config() -> CLIPVisionConfig:
 
 
 class CLIPAttention(nn.Module):
+    # None: `multi_head_attention`'s gate picks the route; CLIPIQA's fp32
+    # tower sets False (eval/clipiqa.py)
+    use_flash = None
+
     def __init__(self, cfg: CLIPVisionConfig, dtype: torch.dtype):
         super().__init__()
         d = cfg.hidden_size
@@ -70,7 +74,7 @@ class CLIPAttention(nn.Module):
             return t.reshape(b, s, self.heads, -1).transpose(1, 2).contiguous()
 
         out = multi_head_attention(split(self.q_proj(x)), split(self.k_proj(x)),
-                                   split(self.v_proj(x)))
+                                   split(self.v_proj(x)), use_flash=self.use_flash)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
 
 

@@ -10,6 +10,8 @@
         --save_dir embeds/ [--tokenizer_dir sdxl/] [--text_encoder_dir T]
     python -m faithdiff_tpu_torch.cli caption --img_dir in/ --save_dir caps/ \\
         --captioner_dir ckpts/captioner [--use_bsrnet]
+    python -m faithdiff_tpu_torch.cli metrics --sr_dir out/ [--gt_dir gt/] \\
+        [--lpips_weights W] [--fid_weights W] [...] [--fit_niqe_dir D]
 
 `restore` takes the JAX CLI's flags with the same defaults and runs its
 loop: every `*.png` of `--img_dir` in sorted order (8- and 16-bit, any
@@ -39,10 +41,13 @@ applied, as in the JAX CLI (a warning says so). Every command runs on the
 CUDA card unless `--device cpu` is given.
 
 `train` runs `training/runner.main` (the two-stage FaithDiff trainer;
-its flags are the JAX runner's, see that module).
+its flags are the JAX runner's, see that module). `metrics` runs
+`eval/metrics.main` (the ten IQA metrics of the reference protocol over
+`--sr_dir` [`--gt_dir`], each learned one gated on its weights file; its
+flags are the JAX harness's, plus `--device`).
 
 What the port does not serve yet raises NotImplementedError naming its
-ROADMAP item: the `metrics` command (§1.6), `--tile_devices` above 1
+ROADMAP item: `--tile_devices` above 1
 (§1.5), JPEG and other non-PNG inputs (§1.1: they wait for a JPEG decoder
 shown on the card's machine, `chip_smoke.py`'s `jpeg_probe`), and in
 `train` `--dtype float32` on the card and more than one process.
@@ -67,15 +72,11 @@ from .models.tokenizer import HashTokenizer, SDXLTokenizer
 from .pipelines.factory import build_pipeline, random_init_
 from .training.text_embeds import precompute_embeds, trim_caption
 from .utils.image import check_image_size, create_hdr_effect
+from .utils.png import JPEG_INPUT as _JPEG_INPUT
 from .utils.png import read_png, write_png
 from .utils.resample import resize_lanczos
 from .utils.safetensors import load_dir
 
-_JPEG_INPUT = ("ROADMAP §1.1 (input formats): JPEG waits for a decoder shown "
-               "on the card's machine (chip_smoke.py jpeg_probe)")
-_NOT_YET = {
-    "metrics": "ROADMAP §1.6 (eval)",
-}
 # tiles per UNet call of the restore: the chunk of the lowest UNet time per
 # tile whose peak leaves 40 GiB of an 80 GB card to the captioner
 # (`chip_smoke.py` tile_chunk_sweep on an H100, PERF.md: 81.8 ms a tile at
@@ -379,15 +380,15 @@ def cmd_train(argv) -> int:
     return 0
 
 
-def _not_yet(command: str):
-    def run(argv):
-        raise NotImplementedError(f"{command}: {_NOT_YET[command]}")
-    return run
+def cmd_metrics(argv) -> int:
+    from .eval.metrics import main as metrics_main
+
+    metrics_main(argv)
+    return 0
 
 
 COMMANDS = {"restore": cmd_restore, "caption": cmd_caption,
-            "embed": cmd_embed, "train": cmd_train,
-            "metrics": _not_yet("metrics")}
+            "embed": cmd_embed, "train": cmd_train, "metrics": cmd_metrics}
 
 
 def main(argv=None) -> int:

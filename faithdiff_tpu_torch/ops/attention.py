@@ -325,15 +325,16 @@ def flash_eligible(q, k) -> bool:
 
 
 def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
-                         causal: bool = False):
+                         causal: bool = False, use_flash: Optional[bool] = None):
     """Scaled dot-product attention over ``[B, H, S, D]`` tensors.
 
     Long attention at d=64 or 128 goes to `flash_attention` (the kernel on
     CUDA); long non-causal score matrices to `chunked_attention`; the rest
-    to `attention_reference`."""
+    to `attention_reference`. `use_flash` overrides the gate, as JAX's
+    argument of that name does (False: never the kernel)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if flash_eligible(q, k):
+    if flash_eligible(q, k) if use_flash is None else use_flash:
         return flash_attention(q, k, v, scale, causal)
     score_elems = q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2]
     if not causal and score_elems > _MAX_PLAIN_SCORE_ELEMS:

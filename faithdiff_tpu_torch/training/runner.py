@@ -338,8 +338,9 @@ def main(argv=None, *, unet_config: Optional[UNetConfig] = None,
 def _run_validation(args, ucfg, vcfg, dcfg, state, vae, step):
     """Restore a few validation images with the EMA parameters (bf16) and
     write their strip to `validation/step_{step}.png` (the reference's
-    `train_SDXL_stage_1.py:127-195`). The MUSIQ score in the file name
-    waits for the eval port (ROADMAP §1.6), as in JAX without a scorer."""
+    `train_SDXL_stage_1.py:127-195`); with MUSIQ weights
+    (`eval/musiq.npz`, or pyiqa) the strips' mean MUSIQ is printed and
+    named in the file, `step_{step}_musiq{mean:.3f}.png`, as in JAX."""
     import glob as _glob
 
     from ..data.dataset import read_image
@@ -380,6 +381,24 @@ def _run_validation(args, ucfg, vcfg, dcfg, state, vae, step):
     if outs:
         out_dir = os.path.join(args.output_dir, "validation")
         os.makedirs(out_dir, exist_ok=True)
-        write_png(os.path.join(out_dir, f"step_{step}.png"),
-                  np.concatenate(outs, axis=1))
+        # MUSIQ quality signal, baked into the strip filename (the stage-2
+        # protocol, `train_SDXL_stage_2.py:182-194`): eval/musiq.py when
+        # converted weights exist, the pyiqa passthrough otherwise; a
+        # scorer that fails leaves the plain name, as in JAX
+        name = f"step_{step}.png"
+        try:
+            from ..eval.metrics import make_learned_metrics
+            from ..eval.musiq import make_musiq
+
+            musiq_fn = make_musiq(device=args.device)
+            if musiq_fn is None:
+                musiq_fn = make_learned_metrics(("musiq",)).get("musiq")
+            if musiq_fn is not None:
+                mean = float(np.mean([musiq_fn(o.astype(np.float32) / 255.0)
+                                      for o in outs]))
+                print(f"validation MUSIQ @ step {step}: {mean:.3f}")
+                name = f"step_{step}_musiq{mean:.3f}.png"
+        except Exception:
+            pass
+        write_png(os.path.join(out_dir, name), np.concatenate(outs, axis=1))
     del pipe

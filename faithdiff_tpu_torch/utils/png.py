@@ -7,7 +7,10 @@ interlaced (Adam7) or not, to the [H, W, 3] uint8 array that
 and transparency (`tRNS`) are dropped, gray is replicated, gray below 8
 bits is scaled to 0..255, 16-bit RGB, RGBA and gray + alpha keep their
 high byte, and 16-bit gray (Pillow's mode `I;16`) is clipped to 255, not
-shifted. `write_png` writes an [H, W, 3] uint8 array as an 8-bit RGB PNG.
+shifted. `decode_png` does the same from a file's bytes and `read_rgb`
+from a path that must name a PNG; both refuse JPEG (NotImplementedError
+naming `JPEG_INPUT`), as the CLI and the eval harnesses do. `write_png`
+writes an [H, W, 3] uint8 array as an 8-bit RGB PNG.
 
 The five scanline filters are undone together along anti-diagonals: a
 byte depends only on its left, upper and upper-left neighbours, so every
@@ -24,6 +27,9 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# why other image formats are refused (the CLI and the eval harnesses)
+JPEG_INPUT = ("ROADMAP §1.1 (input formats): JPEG waits for a decoder shown "
+              "on the card's machine (chip_smoke.py jpeg_probe)")
 # color type -> (channels, allowed bit depths)
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
                 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -153,7 +159,22 @@ def read_png(path: str) -> np.ndarray:
     """[H, W, 3] uint8 RGB of a PNG file, as Pillow's `convert("RGB")`
     gives it. Raises ValueError on a malformed or unsupported file."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """`read_png` of a `.png` path; any other image (JPEG) raises
+    NotImplementedError naming `JPEG_INPUT`, as the CLI refuses it."""
+    if not path.lower().endswith(".png"):
+        raise NotImplementedError(f"{path}: not a PNG; {JPEG_INPUT}")
+    return read_png(path)
+
+
+def decode_png(data: bytes, path: str = "<PNG bytes>") -> np.ndarray:
+    """`read_png` of a PNG file's bytes; `path` names it in errors. A JPEG's
+    bytes raise NotImplementedError naming `JPEG_INPUT`."""
+    if data[:3] == b"\xff\xd8\xff":
+        raise NotImplementedError(f"{path}: JPEG data; {JPEG_INPUT}")
     header = palette = None
     idat = []
     for kind, payload in _chunks(data, path):

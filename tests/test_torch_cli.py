@@ -418,16 +418,19 @@ def test_restore_refuses_what_it_does_not_serve(tmp_path, flags):
     assert not os.path.exists(tmp_path / "out")
 
 
-# what each command does not serve: `metrics` is not ported; `train` is,
-# on one process only (more is ROADMAP §1.5)
-UNSERVED = {"train": ["--output_dir", "x"], "metrics": ["--img_dir", "x"]}
+# what each command does not serve: `train` runs on one process only (more
+# is ROADMAP §1.5); `metrics` reads PNGs only (JPEG is ROADMAP §1.1), and
+# refuses a JPEG before any weights load or the device is asked for
+UNSERVED = {"train": ["--output_dir", "x"], "metrics": ["--sr_dir", "{dir}"]}
 
 
 @pytest.mark.parametrize("command", ["train", "metrics"])
-def test_commands_not_ported_raise(command, monkeypatch):
+def test_commands_not_ported_raise(command, monkeypatch, tmp_path):
     monkeypatch.setenv("WORLD_SIZE", "2")
+    (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff")
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.\d"):
-        cli.main([command] + UNSERVED[command])
+        cli.main([command] + [a.replace("{dir}", str(tmp_path))
+                              for a in UNSERVED[command]])
 
 
 def test_unknown_command_prints_usage():

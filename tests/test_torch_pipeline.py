@@ -51,15 +51,30 @@ def pipes():
     return jpipe, tpipe, (img, pe, pooled)
 
 
-def _run_both(pipes, output_type, **kw):
+def _run_both(pipes, **kw):
+    """Each side's denoise once, to latents (NHWC numpy)."""
     jpipe, tpipe, (img, pe, pooled) = pipes
     want = jpipe(img, jnp.asarray(pe), jnp.asarray(pooled), seed=SEED,
-                 output_type=output_type, noise_source="torch", **kw)
+                 output_type="latent", noise_source="torch", **kw)
     _build.launches.clear()
-    got = tpipe(img, pe, pooled, seed=SEED, output_type=output_type, **kw)
+    got = tpipe(img, pe, pooled, seed=SEED, output_type="latent", **kw)
     assert sum(_build.launches.values()) == 0     # CPU: plain versions only
-    if output_type == "latent":
-        got = got.numpy()
+    return np.asarray(want), got.numpy()
+
+
+def _decode_both(pipes, want_latents, got_latents, output_type):
+    """The "np" / "uint8" output of the run that gave these latents: each
+    pipeline's own decode of them (the JAX `__call__` returns
+    `_jit_postprocess(vae_params, latents, lr[None], ...)[0]`, the port's
+    `_decode`, which `decode` runs)."""
+    jpipe, tpipe, (img, _, _) = pipes
+    want = jpipe._jit_postprocess(jpipe.vae_params, jnp.asarray(want_latents),
+                                  jnp.asarray(img)[None],
+                                  color_fix=jpipe.config.color_fix,
+                                  to_uint8=output_type == "uint8")[0]
+    _build.launches.clear()
+    got = tpipe.decode(got_latents, img, output_type=output_type)
+    assert sum(_build.launches.values()) == 0
     return np.asarray(want), got
 
 
@@ -67,13 +82,13 @@ def test_start_point_noise(pipes):
     """Same CPU torch.Generator latents on both sides: latents, float and
     uint8 images agree. fp32 throughout; the differences are summation
     order through 4 steps of CFG 5, and uint8 rounding may flip by 1."""
-    want, got = _run_both(pipes, "latent", start_point="noise")
-    assert got.shape == (1, H // 8, W // 8, 4)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    want, got = _run_both(pipes, "np", start_point="noise")
+    want_lat, got_lat = _run_both(pipes, start_point="noise")
+    assert got_lat.shape == (1, H // 8, W // 8, 4)
+    np.testing.assert_allclose(got_lat, want_lat, rtol=1e-4, atol=1e-4)
+    want, got = _decode_both(pipes, want_lat, got_lat, "np")
     assert got.dtype == np.float32 and got.shape == (H, W, 3)
     np.testing.assert_allclose(got, want, atol=1e-4)
-    want, got = _run_both(pipes, "uint8", start_point="noise")
+    want, got = _decode_both(pipes, want_lat, got_lat, "uint8")
     assert got.dtype == np.uint8
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
@@ -90,7 +105,7 @@ def test_start_point_lr(pipes, monkeypatch):
         return torch.from_numpy(noise.copy()).to(device)
 
     monkeypatch.setattr(torch_vae, "posterior_noise", jax_noise)
-    want, got = _run_both(pipes, "latent", start_point="lr")
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    want, got = _run_both(pipes, "uint8", start_point="lr")
+    want_lat, got_lat = _run_both(pipes, start_point="lr")
+    np.testing.assert_allclose(got_lat, want_lat, rtol=1e-4, atol=1e-4)
+    want, got = _decode_both(pipes, want_lat, got_lat, "uint8")
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1

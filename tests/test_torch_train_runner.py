@@ -16,6 +16,8 @@ from faithdiff_tpu.training import runner as jax_runner
 from faithdiff_tpu_torch import cli
 from faithdiff_tpu_torch.config import (tiny_denoise_encoder_config,
                                         tiny_unet_config, tiny_vae_config)
+from faithdiff_tpu_torch.eval import musiq
+from faithdiff_tpu_torch.eval.lpips import seeded_init_, tree_from_module
 from faithdiff_tpu_torch.training import runner
 from faithdiff_tpu_torch.training.logging import read_metrics
 from faithdiff_tpu_torch.utils.png import read_png, write_png
@@ -129,6 +131,31 @@ def test_cli_train_validation_strip(tmp_path, tiny_cli):
                   "--validation_steps", "1") == 0
     strip = read_png(str(out / "validation" / "step_1.png"))
     assert strip.shape == (32, 64, 3)
+
+
+def test_cli_train_validation_musiq_name(tmp_path, tiny_cli, monkeypatch, capsys):
+    """With MUSIQ weights at the default path (a tiny MUSIQ npz here) the
+    strip is named with its images' mean score, as the JAX runner names it,
+    and the mean is the port's MUSIQ of the strip's images."""
+    cfg = musiq.MUSIQConfig(patch_size=8, hidden_size=16, num_layers=1,
+                            num_heads=2, mlp_dim=32, grid_size=4,
+                            scale_longer_sides=(24, 16), max_tokens=40)
+    weights = tmp_path / "musiq.npz"
+    model = seeded_init_(musiq.MUSIQ(cfg), 0)
+    musiq.save_musiq_weights(tree_from_module(model), str(weights), cfg)
+    monkeypatch.setattr(musiq, "_DEFAULT_WEIGHTS", str(weights))
+    val = tmp_path / "val"
+    val.mkdir()
+    write_png(str(val / "v.png"),
+              np.random.default_rng(1).integers(0, 256, (20, 28, 3), dtype=np.uint8))
+    out = tmp_path / "run"
+    assert _train(out, "--max_train_steps", "1", "--val_dir", str(val),
+                  "--validation_steps", "1") == 0
+    (name,) = os.listdir(out / "validation")
+    strip = read_png(str(out / "validation" / name))
+    mean = musiq.make_musiq(str(weights), device="cpu")(strip.astype(np.float32) / 255)
+    assert name == f"step_1_musiq{mean:.3f}.png"
+    assert f"validation MUSIQ @ step 1: {mean:.3f}" in capsys.readouterr().out
 
 
 def test_refusals(tmp_path, monkeypatch):
