@@ -194,9 +194,32 @@
    frozen LLaMA's too), 40 flash launches (causal, d = 128) a step; ms a
    step and the peak. `jpeg_probe`: whether libjpeg and `jpeglib.h` exist
    on the machine (information, not a check).
+9c. fp32 and multi-GPU. `kernel_checks` also holds the fp32 flash kernel
+   (`csrc/flash_attention_f32.cu`) against its plain version in full fp32
+   (TF32 off) within 2e-5 * max|ref| at [2,10,4096,64], [2,20,1024,64],
+   causal [1,40,1024,128] and packed [2,4096,640] (10 heads), with its
+   bound at the fp32 CUDA-core rate and SDPA in fp32 as the yardstick.
+   `serving_demo` (after `png_formats`): `serving/web_demo.py` through its
+   `main` in a subprocess on `cli_restore`'s checkpoint; its `/restore`
+   of `cli_restore`'s photo identical in every byte to the CLI's PNG; a
+   JPEG upload refused. `distributed` (after `restore_4k`): a one-rank
+   NCCL group; the 1024x1536 restore with the pipeline's `tile_group`
+   and a stage-1 micro-step plus optimizer step under data parallelism and
+   ZeRO, each equal in every bit to the plain one. `serving_caption`
+   (after `cli_caption`): the controller and a worker through their
+   `main`s in subprocesses on `cli_caption`'s checkpoint (int8); two
+   captions through the controller identical to `cli.py caption`'s.
+   `train_fp32` (after `cli_train`): `cli.py train --dtype float32` at
+   full width, stage 1, 512 px, batch 2, two micro-steps on the default
+   attention path and one on the packed path, each with 10 fp32 flash
+   launches of its layout, the checkpoint writes stubbed; the kernel at the
+   micro-step's attention shape against its plain version. Every phase
+   times itself with `faithdiff_tpu_torch/utils/profiling.py` (`phase`,
+   `time_ms`, `trace`, `device_split`).
 10. Prints the card line, a JSON line listing every ported kernel (with
    its launches per training micro-step of both stages, and on the fp8
-   and Karras restores, the VQA phase and a caption training step), then a
+   and Karras restores, the VQA phase, a caption training step and the
+   fp32 micro-steps), then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
 
@@ -233,6 +256,14 @@ ATTN_SHAPES = [((4, 10, 4096, 64), False), ((4, 20, 1024, 64), False),
                ((1, 40, 4096, 128), False)]
 # ([b, s, n*d], heads): the UNet self-attentions on the packed path
 PACKED_SHAPES = [((4, 4096, 640), 10), ((4, 1024, 1280), 20)]
+# the fp32 kernel: the UNet self-attentions at a 1024^2 tile for one tile's
+# CFG pair (batch 2), the LLaMA's causal prefill shape at d = 128, and the
+# packed [b, s, n*d] layout; within 2e-5 * max|ref| of the plain version in
+# full fp32 (the sums' order and exp2 against exp differ)
+F32_ATTN_SHAPES = [((2, 10, 4096, 64), False), ((2, 20, 1024, 64), False),
+                   ((1, 40, 1024, 128), True)]
+F32_PACKED = ((2, 4096, 640), 10)
+F32_FLASH_TOL = 2e-5
 # (shape, base2, block_k) of the variant kernel's kernels entry
 VARIANT_REPORT = ((20, 4096, 64), True, 64)
 # (shape NCHW, eps, act, with add): UNet ResNet / Transformer2D norms, the
@@ -315,10 +346,14 @@ CHUNK_TOL = 2 ** -5                      # x max|unchunked output|
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Prints the block's wall seconds as `phase <name>: <s> s`."""
-    t0 = time.perf_counter()
-    yield
-    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    """Times the block with `utils.profiling.phase` and prints its wall
+    seconds as `phase <name>: <s> s`."""
+    from faithdiff_tpu_torch.utils import profiling
+
+    with profiling.phase(name):
+        yield
+    print(f"phase {name}: {profiling.phase_report()[name]['last_s']:.1f} s",
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -334,26 +369,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one call, from CUDA events around `iters`
-    calls after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def graph_ms(torch, fn, launches: int = 20, replays: int = 10) -> float:
     """Mean device time of one call of `fn`, from CUDA events around
     replays of a CUDA graph holding `launches` calls: the host's launch
     rate, which a loop of Python wrapper calls measures at a few tens of
     microseconds a call, drops out."""
+    from faithdiff_tpu_torch.utils.profiling import time_ms
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -365,7 +387,7 @@ def graph_ms(torch, fn, launches: int = 20, replays: int = 10) -> float:
         for _ in range(launches):
             fn()
     graph.replay()
-    return time_ms(torch, graph.replay, replays, warmup=1) / launches
+    return time_ms(graph.replay, replays, warmup=1) / launches
 
 
 def host_us(torch, fn, calls: int = 200) -> float:
@@ -381,14 +403,17 @@ def host_us(torch, fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def flash_timing(torch, flops, nbytes, kernel, plain, library) -> dict:
+def flash_timing(torch, flops, nbytes, kernel, plain, library,
+                 peak=PEAK_BF16_FLOPS) -> dict:
     """The timing keys of a flash row: kernel and library call from CUDA
     graphs (device time; at under ~0.2 ms a loop of wrapper calls measures
-    the host), the plain version from a loop of calls, the bound, and the
-    wrapper's host cost."""
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    the host), the plain version from a loop of calls, the bound at the
+    `peak` rate, and the wrapper's host cost."""
+    from faithdiff_tpu_torch.utils.profiling import time_ms
+
+    b_ms, b_by = bound(flops, nbytes, peak)
     ms = graph_ms(torch, kernel)
-    return dict(ms=ms, plain_ms=time_ms(torch, plain, 3, 1),
+    return dict(ms=ms, plain_ms=time_ms(plain, 3, 1),
                 library_ms=graph_ms(torch, library), bound_ms=b_ms,
                 bound_by=b_by, tflops=flops / ms / 1e9, ms_over_bound=ms / b_ms,
                 wrapper_host_us=host_us(torch, kernel))
@@ -519,6 +544,80 @@ def check_attention_packed(torch):
     return rows
 
 
+@contextlib.contextmanager
+def tf32_off(torch):
+    """fp32 products and convolutions in full fp32 within the block."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def f32_flash_row(torch, label, q, k, v, scale, causal=False, heads=None,
+                  timed=True) -> dict:
+    """The fp32 kernel (`flash_attention`, or `flash_attention_packed` with
+    `heads`) against its plain version on q, k, v, TF32 off: within
+    F32_FLASH_TOL * max|ref| and finite; with `timed`, ms, plain ms, SDPA's
+    ms in fp32 (the yardstick) and the bound at the fp32 CUDA-core rate."""
+    import torch.nn.functional as F
+
+    from faithdiff_tpu_torch.ops.attention import (attention_reference, einsum_bsnd,
+                                                   flash_attention,
+                                                   flash_attention_packed)
+
+    if heads is None:
+        b, h, s, d = q.shape
+        kernel = lambda: flash_attention(q, k, v, scale, causal)  # noqa: E731
+        plain = lambda: attention_reference(q, k, v, scale, causal)  # noqa: E731
+        views = (q, k, v)
+    else:
+        (b, s, f), h = q.shape, heads
+        d = f // h
+        kernel = lambda: flash_attention_packed(q, k, v, h, scale)  # noqa: E731
+        plain = lambda: einsum_bsnd(q, k, v, h, scale)  # noqa: E731
+        views = tuple(t.view(b, -1, h, d).transpose(1, 2) for t in (q, k, v))
+    with tf32_off(torch):
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = float((out - ref).abs().max())
+        tol = F32_FLASH_TOL * float(ref.abs().max())
+        row = dict(shape=list(q.shape), heads=h, causal=causal, max_abs_err=err,
+                   tol=f"{F32_FLASH_TOL} * max|ref| = {tol:.3g}",
+                   ok=err <= tol and bool(torch.isfinite(out).all()))
+        if timed:
+            pairs = s * (s + 1) / 2 if causal else s * s
+            row.update(flash_timing(
+                torch, 4 * b * h * d * pairs, 4 * b * h * s * d * 4, kernel, plain,
+                lambda: F.scaled_dot_product_attention(*views, is_causal=causal,
+                                                       scale=scale),
+                peak=PEAK_FP32_FLOPS))
+    print(label, json.dumps(row), flush=True)
+    return row
+
+
+def check_attention_f32(torch):
+    """The fp32 flash kernel (`csrc/flash_attention_f32.cu`) at the UNet's
+    self-attention shapes (batch 2), the LLaMA's causal d = 128 one and the
+    packed layout, TF32 off (see `f32_flash_row`)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for shape, causal in F32_ATTN_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        rows.append(f32_flash_row(torch, "attention_f32", q, k, v,
+                                  shape[-1] ** -0.5, causal))
+        del q, k, v
+    shape, heads = F32_PACKED
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+    rows.append(f32_flash_row(torch, "attention_f32_packed", q, k, v,
+                              (shape[-1] // heads) ** -0.5, heads=heads))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_attention_ragged(torch):
     """Correctness only: the flash kernels where tiles are partial. q and
     kv lengths that are no multiple of the 128-row block or the 128-row
@@ -645,6 +744,8 @@ def check_group_norm(torch):
     walk, statistics from an fp32 run), and the two-pass pair (partials
     against the plain statistics, output against the plain version). Every
     time from CUDA graphs; the wrapper's host cost from a loop of calls."""
+    from faithdiff_tpu_torch.utils.profiling import time_ms
+
     import torch.nn.functional as F
 
     from faithdiff_tpu_torch.ops.groupnorm import (GroupNormLaunch,
@@ -714,7 +815,7 @@ def check_group_norm(torch):
                        tol="1e-2 + 8e-3*|ref|", stats_err=s_err,
                        stats_tol="1e-4", tiled_err=tiled_err, same_bits=same,
                        ok=ok and same and s_err <= 1e-4 and tiled_ok,
-                       ms=ms, plain_ms=time_ms(torch, lambda: group_norm_reference(
+                       ms=ms, plain_ms=time_ms(lambda: group_norm_reference(
                            x, scale, bias, groups, eps, act, add), 3, 1),
                        library_ms=lib_ms, bound_ms=fn_ms, bound_by=fn_by,
                        ms_over_bound=ms / fn_ms,
@@ -746,13 +847,13 @@ def check_group_norm(torch):
         srow = dict(common, **two, max_abs_err=float(s_err.max()), tol="1e-4",
                     ok=bool((s_err <= 1e-4).all()),
                     ms=graph_ms(torch, launch.stats),
-                    plain_ms=time_ms(torch, lambda: group_stats_reference(
+                    plain_ms=time_ms(lambda: group_stats_reference(
                         x, groups, add), 3, 1),
                     library_ms=None, bound_ms=st_ms, bound_by=st_by)
         arow = dict(common, **two, max_abs_err=err, tol="1e-2 + 8e-3*|ref|",
                     same_bits=same, ok=a_ok and same,
                     ms=graph_ms(torch, launch.apply),
-                    plain_ms=time_ms(torch, lambda: group_apply_reference(
+                    plain_ms=time_ms(lambda: group_apply_reference(
                         x, gs1, gs2, scale, bias, groups, eps, act, add), 3, 1),
                     library_ms=lib_ms, bound_ms=ap_ms, bound_by=ap_by)
         print("group_norm_stats", json.dumps(srow), flush=True)
@@ -1062,7 +1163,7 @@ def run_cli_restore(torch, pipe, root: str) -> str:
     ...])` with default flags on a seeded 512x768 PNG (upscale 2: 1024x1536,
     2 latent tiles). The PNG it writes must equal, byte for byte, the
     in-memory pipeline's uint8 output on `resize_lanczos` of the same image.
-    Returns the converted checkpoint dir."""
+    Returns the converted checkpoint dir and the result row."""
     import numpy as np
 
     from faithdiff_tpu_torch import cli
@@ -1136,7 +1237,7 @@ def run_cli_restore(torch, pipe, root: str) -> str:
         identical_to_in_memory=True, pixels=list(got.shape[:2]),
         launches=counts, launches_as_planned=True)
     print("cli_restore", json.dumps(result), flush=True)
-    return ckpt
+    return ckpt, result
 
 
 def run_cli_restore_tiled(torch, root: str, ckpt: str) -> None:
@@ -1493,6 +1594,7 @@ def check_text_towers(torch, tok_root: str) -> None:
     prompts tokenised by the port's BPE (one past 77 tokens): the largest
     error within 5e-2 * (1 + max|ref|), the mean error within
     TOWER_MEAN_TOL * mean|ref|; ms per encode of one prompt and of four."""
+    from faithdiff_tpu_torch.utils.profiling import time_ms
     from faithdiff_tpu_torch import cli
     from faithdiff_tpu_torch.models.clip_text import SDXLTextEncoder
     from faithdiff_tpu_torch.models.tokenizer import SDXLTokenizer
@@ -1515,7 +1617,7 @@ def check_text_towers(torch, tok_root: str) -> None:
 
         def timed(n):
             a, b = t1[:n].cuda(), t2[:n].cuda()
-            return median([time_ms(torch, lambda: enc(a, b), 3, 1) for _ in range(3)])
+            return median([time_ms(lambda: enc(a, b), 3, 1) for _ in range(3)])
 
         ms_1, ms_4 = timed(1), timed(4)
     rows = {}
@@ -1668,51 +1770,32 @@ KERNEL_CLASSES = (("flash_bsnd_fwd_kernel", "packed flash attention (ours)"),
 
 
 def profile_call(torch, label, module, args, kwargs):
-    """One more call of `module` under torch.profiler: device time by layer
-    and by kernel, and the device's busy share between its first and last
-    kernel. The chrome trace is kept beside the built kernels, as
-    faithdiff_tpu_torch/_build/<label>_trace.json."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One more call of `module` under `utils.profiling.trace`: device time
+    by layer and by kernel, and the device's busy share between its first
+    and last kernel (`profiling.device_split`). The chrome trace is kept
+    beside the built kernels, as faithdiff_tpu_torch/_build/<label>/trace.json."""
     from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils import profiling
 
+    log_dir = os.path.join(_build.BUILD_DIR, label)
     with torch.no_grad():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiling.trace(log_dir):
             t0 = time.perf_counter()
             module(*args, **kwargs)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    path = os.path.join(_build.BUILD_DIR, f"{label}_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        kernels = [e for e in json.load(f)["traceEvents"]
-                   if e.get("cat") == "kernel" and "dur" in e]
+    kernels, _ = profiling.kernel_events(os.path.join(log_dir, "trace.json"))
     if not kernels:
         print(f"{label}: the trace holds no device kernels: not measured",
               flush=True)
         return None
-    by_class, by_name = {}, {}
-    for e in kernels:
-        name = e["name"]
-        cls = next((c for frag, c in KERNEL_CLASSES if frag in name.lower()),
-                   "other")
-        by_class[cls] = by_class.get(cls, 0.0) + e["dur"] / 1e3
-        by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    busy, end = 0.0, spans[0][0]
-    for s, t in spans:
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    span_ms = (end - spans[0][0]) / 1e3
-    kernel_ms = sum(by_class.values())
-    result = dict(kernels=len(kernels), kernel_ms=kernel_ms, span_ms=span_ms,
-                  busy_share=busy / 1e3 / span_ms, host_wall_ms=wall_ms,
-                  by_layer={k: v for k, v in sorted(by_class.items(),
-                                                    key=lambda kv: -kv[1])})
+    split = profiling.device_split(kernels, KERNEL_CLASSES)
+    by_name = split.pop("by_name")
+    result = dict(split, host_wall_ms=wall_ms)
     print(label, json.dumps(result), flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"  {ms:9.3f} ms  {ms / kernel_ms:6.1%}  {name[:110]}", flush=True)
+        print(f"  {ms:9.3f} ms  {ms / split['kernel_ms']:6.1%}  {name[:110]}",
+              flush=True)
     return result
 
 
@@ -1727,6 +1810,7 @@ def check_nf4(torch, ms_checked=None):
     tolerance, finite), has the same bits on two calls and was counted on
     its route (`route` is None for a port that counts no routes, as
     `faithdiff_tpu_torch/scripts/bench_nf4_decode.py` may time)."""
+    from faithdiff_tpu_torch.utils.profiling import time_ms
     from faithdiff_tpu_torch.ops import _build
     from faithdiff_tpu_torch.ops.nf4_matmul import nf4_matmul_kernel, nf4_matmul_reference
     from faithdiff_tpu_torch.utils.quantize import dequantize_nf4, quantize_nf4
@@ -1773,7 +1857,7 @@ def check_nf4(torch, ms_checked=None):
                        max_abs_err=float(err.max()), tol="1e-2*(1+|ref|)", in_tol=in_tol,
                        ok=ok,
                        same_bits=same_bits, ms=ms, ms_over_bound=ms / b_ms,
-                       plain_ms=time_ms(torch, lambda: nf4_matmul_reference(x, q), 3, 1),
+                       plain_ms=time_ms(lambda: nf4_matmul_reference(x, q), 3, 1),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
                        decoded_bf16_matmul_ms=graph_ms(
                            torch, lambda: torch.matmul(x, w_dec.T)))
@@ -2392,7 +2476,9 @@ def run_cli_caption(torch, root: str) -> dict:
     for name in names:
         print(f"  {name}: {captions[name]['caption'][:100]!r}", flush=True)
     print(f"  nf4 {names[0]}: {nf4_caption[:100]!r}", flush=True)
-    return result
+    files = dict(cap_dir=cap_dir, img_dir=img_dir, names=names,
+                 captions={n: c["caption"] for n, c in captions.items()})
+    return result, files
 
 
 def check_bsrnet(torch) -> dict:
@@ -2478,6 +2564,7 @@ TRAIN_GN = [((16, 320, 64, 64), 1e-5, "silu", True, "fused"),
 STAGE1, STAGE2 = (16, 4, False), (2, 16, True)
 TRAIN_FALLBACK_BATCHES = (12, 8, 6, 4, 2)
 TRAIN_COUNTERS = ("flash_attention_fwd", "flash_attention_bsnd_fwd",
+                  "flash_attention_f32_fwd", "flash_attention_f32_bsnd_fwd",
                   "attention_variant_fwd", "group_norm_fused",
                   "group_norm_stats", "group_norm_apply", "nf4_matmul")
 
@@ -2491,6 +2578,7 @@ def check_train_autograd(torch):
     version on the saved inputs with autocast off, so every gradient must
     equal, bit for bit, autograd over the plain version on the same
     inputs; max|err| is printed beside it. Kernel forward and backward ms."""
+    from faithdiff_tpu_torch.utils.profiling import time_ms
     from faithdiff_tpu_torch.ops import _build
     from faithdiff_tpu_torch.ops import attention as A
     from faithdiff_tpu_torch.ops import groupnorm as G
@@ -2531,8 +2619,8 @@ def check_train_autograd(torch):
         ok = (same and fwd_ok and all(n == 1 for n in fwd_launches.values())
               and bwd_launches == 0 and all(grads_equal))
         with torch.no_grad():
-            fwd_ms = time_ms(torch, lambda: bare(*inputs), 5)
-        bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            fwd_ms = time_ms(lambda: bare(*inputs), 5)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
             out, wrt, g, retain_graph=True), 3, 1)
         row = dict(check="train_autograd", kernel=label,
                    shapes=[list(t.shape) for t in wrt], same_forward=same,
@@ -2654,10 +2742,11 @@ class TrainWatch:
 
 
 def build_train(torch, stage: int, batch: int, accum: int, remat: bool,
-                ema_interval: int = 100):
+                ema_interval: int = 100, data_parallel: bool = False):
     """Full-width UNet, denoise encoder and VAE built on the card from a
     seeded init (fp32 master weights), the adapters without their zero
-    init, the stage's TrainState and its bf16 step."""
+    init, the stage's TrainState (ZeRO over the process group with
+    `data_parallel`) and its bf16 step."""
     from faithdiff_tpu_torch.config import (DenoiseEncoderConfig, TrainConfig,
                                             UNetConfig, VAEConfig)
     from faithdiff_tpu_torch.training import runner
@@ -2673,7 +2762,7 @@ def build_train(torch, stage: int, batch: int, accum: int, remat: bool,
     cfg = TrainConfig(stage=stage, batch_size_per_device=batch,
                       grad_accum=accum, lr_warmup_steps=0,
                       ema_update_interval=ema_interval)
-    state = init_train_state(cfg, unet, de)
+    state = init_train_state(cfg, unet, de, data_parallel)
     step = make_train_step(unet, de, vae, cfg)
     torch.cuda.synchronize()
     print(f"train_stage{stage}: built in {time.perf_counter() - t0:.1f} s, "
@@ -2722,9 +2811,8 @@ def run_train_micro_steps(torch, label, state, step, batch, n, models,
     launches, metrics, profile). Micro-step `profile_at` (0-based) runs
     under torch.profiler (its trace split by `trace_split`; its ms are
     kept out of the list)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.utils import profiling
 
     batches = train_batches(batch)
     gen = torch.Generator().manual_seed(1)
@@ -2740,15 +2828,14 @@ def run_train_micro_steps(torch, label, state, step, batch, n, models,
             b = next(batches)
             torch.cuda.synchronize()
             if i == profile_at:
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+                log_dir = os.path.join(_build.BUILD_DIR, label)
+                with profiling.trace(log_dir):
                     t0 = time.perf_counter()
                     m = step(state, b, gen)
                     torch.cuda.synchronize()
                     wall_ms = (time.perf_counter() - t0) * 1e3
-                path = os.path.join(_build.BUILD_DIR, f"{label}_trace.json")
-                prof.export_chrome_trace(path)
-                split = dict(trace_split(torch, path), micro_step=i + 1,
+                split = dict(trace_split(torch, os.path.join(log_dir, "trace.json")),
+                             micro_step=i + 1,
                              profiled_wall_ms=wall_ms)
             else:
                 start = torch.cuda.Event(enable_timing=True)
@@ -2825,9 +2912,9 @@ def trace_split(torch, path: str) -> dict:
     the plain attention recompute (the `plain_backward:attention_reference`
     and `:einsum_bsnd` ranges, on the launching thread), the GroupNorm
     recompute's, and the device's busy share."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    from faithdiff_tpu_torch.utils import profiling
+
+    kernels, events = profiling.kernel_events(path)
     launch = {e["args"]["correlation"]: e for e in events
               if e.get("cat") in ("cuda_runtime", "cuda_driver")
               and "correlation" in e.get("args", {})}
@@ -2869,14 +2956,9 @@ def trace_split(torch, path: str) -> dict:
             recompute["attention"] += ms
         elif sub == "plain_backward:group_norm_plain":
             recompute["group_norm"] += ms
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    busy, end = 0.0, spans[0][0]
-    for s, t in spans:
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    span_ms = (end - spans[0][0]) / 1e3
+    busy_ms, span_ms = profiling.busy(kernels)
     return dict(device_ms_by_phase=split, kernel_ms=sum(split.values()),
-                span_ms=span_ms, busy_share=busy / 1e3 / span_ms,
+                span_ms=span_ms, busy_share=busy_ms / span_ms,
                 backward_plain_attention_ms=recompute["attention"],
                 backward_plain_group_norm_ms=recompute["group_norm"],
                 plain_attention_share_of_backward=(
@@ -4074,6 +4156,379 @@ def run_vqa(torch, agent, root: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# fp32 training, the serving stack, one-rank NCCL
+# ---------------------------------------------------------------------------
+
+# train --dtype float32: stage 1 at 512 px, batch 2, accum 1, two micro-steps
+# on the default attention path and one on the packed path; the UNet's
+# self-attentions at >= 1024 tokens (32^2 latents: 4 in down block 1, 6 in
+# up block 1) are 10 fp32 flash launches a micro-step
+FP32_TRAIN_STEPS, FP32_FLASH_PER_STEP = 2, 10
+FP32_TRAIN_SHAPE = (2, 10, 1024, 64)
+SERVER_START_S = 300                     # a server's start-up, its model load included
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def post_json(url: str, payload: dict, timeout: float = 600) -> bytes:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def start_server(args, label: str):
+    """`python <args>` from the checkout, its output to a log beside the
+    built kernels."""
+    log = open(os.path.join(_build_dir(), f"{label}_{os.getpid()}.log"), "w")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    proc.log = log
+    return proc
+
+
+def _build_dir() -> str:
+    from faithdiff_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    return _build.BUILD_DIR
+
+
+def wait_until(proc, ready, label: str, timeout: float = SERVER_START_S) -> float:
+    """Poll `ready()` until it is true; fails if `proc` exits or `timeout`
+    passes. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            fail(f"{label} exited with {proc.returncode}: {tail_log(proc)}")
+        try:
+            if ready():
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.5)
+    fail(f"{label} not ready after {timeout} s: {tail_log(proc)}")
+
+
+def tail_log(proc, n: int = 3000) -> str:
+    proc.log.flush()
+    with open(proc.log.name) as f:
+        return f.read()[-n:]
+
+
+def stop_servers(procs) -> None:
+    """SIGINT (the mains' KeyboardInterrupt exit), then kill what is left."""
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGINT)
+    for p in procs:
+        try:
+            p.wait(20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(10)
+        p.log.close()
+
+
+def run_train_fp32(torch, root: str) -> dict:
+    """`cli.main(["train", "--dtype", "float32", "--synthetic_data", ...])`
+    at full width, stage 1, 512 px, batch 2, accum 1: FP32_TRAIN_STEPS
+    micro-steps on the default attention path, then one more on the packed
+    path (FAITHDIFF_BSND_ATTN). Each micro-step is timed (CUDA events) and
+    must launch exactly FP32_FLASH_PER_STEP fp32 flash kernels of its layout
+    and no bf16 one, with a finite loss; peak memory. The checkpoint writes
+    are stubbed (a stage-1 state is ~10.5 GB; `cli_train` writes and
+    resumes them at bf16). Then the fp32 kernel at the micro-step's
+    attention shape against its plain version."""
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.models import transformer2d
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.training import checkpoint as C
+    from faithdiff_tpu_torch.training import runner
+
+    make_step, save = runner.make_train_step, C.CheckpointManager.save
+    steps = []
+
+    def timed_make_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def timed(*sa, **sk):
+            before = dict(_build.launches)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(*sa, **sk)
+            end.record()
+            torch.cuda.synchronize()
+            steps.append(dict(ms=start.elapsed_time(end), loss=float(m["loss"]),
+                              packed=transformer2d._BSND_ATTN,
+                              launches={n: c - before.get(n, 0) for n, c in
+                                        _build.launches.items() if c - before.get(n, 0)}))
+            # the last micro-step on the packed path
+            transformer2d._BSND_ATTN = len(steps) >= FP32_TRAIN_STEPS
+            return m
+        return timed
+
+    saves = []
+    runner.make_train_step = timed_make_step
+    C.CheckpointManager.save = lambda self, step, *a, **k: saves.append(step) or True
+    packed_before = transformer2d._BSND_ATTN
+    _build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        if cli.main(["train", "--synthetic_data", "--dtype", "float32",
+                     "--output_dir", os.path.join(root, "fp32_run"),
+                     "--resolution", str(TRAIN_RES), "--train_batch_size", "2",
+                     "--grad_accum", "1", "--max_train_steps", str(FP32_TRAIN_STEPS + 1),
+                     "--log_every", "1", "--lr_warmup_steps", "0"]) != 0:
+            fail("train_fp32: train returned nonzero")
+    finally:
+        runner.make_train_step, C.CheckpointManager.save = make_step, save
+        transformer2d._BSND_ATTN = packed_before
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)        # the path's, before the check's
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, st in enumerate(steps):
+        name = "flash_attention_f32_bsnd_fwd" if st["packed"] else "flash_attention_f32_fwd"
+        flash = {n: c for n, c in st["launches"].items() if "attention" in n}
+        if flash != {name: FP32_FLASH_PER_STEP} or not math.isfinite(st["loss"]):
+            fail(f"train_fp32: micro-step {i + 1}: loss {st['loss']}, attention "
+                 f"launches {flash}, expected {{{name!r}: {FP32_FLASH_PER_STEP}}}")
+    if len(steps) != FP32_TRAIN_STEPS + 1 or not steps[-1]["packed"]:
+        fail(f"train_fp32: {len(steps)} micro-steps {[s['packed'] for s in steps]}")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn(FP32_TRAIN_SHAPE, generator=gen, device="cuda")
+               for _ in range(3))
+    check = f32_flash_row(torch, "train_fp32_attention", q, k, v, 64 ** -0.5,
+                          timed=False)
+    if not check["ok"]:
+        fail(f"train_fp32: the fp32 kernel at the training shape: {check}")
+    row = dict(check="train_fp32", stage=1, batch=2, grad_accum=1, res=TRAIN_RES,
+               ms_per_micro_step=[s["ms"] for s in steps],
+               loss=[s["loss"] for s in steps],
+               launches_per_micro_step=[s["launches"] for s in steps],
+               peak_gib=peak, cli_wall_s=wall, saves_stubbed=saves,
+               kernel_max_abs_err=check["max_abs_err"])
+    print(json.dumps(row), flush=True)
+    return dict(row, launches=launches)
+
+
+def run_serving_demo(torch, root: str, ckpt: str, cli_row: dict) -> dict:
+    """`python -m faithdiff_tpu_torch.serving.web_demo` on `cli_restore`'s
+    converted checkpoint, on a free port: `GET /` serves the page, and two
+    `/restore`s of `cli_restore`'s photo (base64 PNG) at the CLI's defaults
+    each return a PNG identical in every byte to the one `cli.py restore`
+    wrote; their latencies (the server process's first call, then a warm
+    one) beside the CLI's wall time. A JPEG upload gets the JPEG_INPUT
+    error."""
+    import base64
+    import urllib.request
+
+    from faithdiff_tpu_torch.utils.png import JPEG_INPUT
+
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    proc = start_server(["-m", "faithdiff_tpu_torch.serving.web_demo", "--host",
+                         "127.0.0.1", "--port", str(port), "--checkpoint_dir", ckpt],
+                        "web_demo")
+    try:
+        def page():
+            with urllib.request.urlopen(url + "/", timeout=5) as r:
+                return r.status == 200 and b"Restoration Run" in r.read()
+
+        ready_s = wait_until(proc, page, "web_demo")
+        with open(os.path.join(root, "in", "photo.png"), "rb") as f:
+            upload = base64.b64encode(f.read()).decode()
+        with open(os.path.join(root, "out", "photo.png"), "rb") as f:
+            want = f.read()
+        latency = []
+        for _ in range(2):          # the server process's first call, then a warm one
+            t0 = time.perf_counter()
+            reply = json.loads(post_json(url + "/restore", {"image": upload}))
+            latency.append(time.perf_counter() - t0)
+            if "image" not in reply:
+                fail(f"web_demo: /restore answered {reply}")
+            got = base64.b64decode(reply["image"])
+            if got != want:
+                fail(f"web_demo: /restore PNG ({len(got)} bytes) is not the CLI's "
+                     f"({len(want)} bytes)")
+        jpeg = base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(16)).decode()
+        refused = json.loads(post_json(url + "/restore", {"image": jpeg}))
+        if JPEG_INPUT not in refused.get("error", ""):
+            fail(f"web_demo: a JPEG upload answered {refused}")
+    finally:
+        stop_servers([proc])
+    row = dict(check="serving_demo", start_s=ready_s, restore_latency_s=latency,
+               cli_wall_s=cli_row["cli_wall_s"], cli_pipeline_s=cli_row["pipeline_s"],
+               png_bytes=len(got), identical_to_cli=True, jpeg_refused=True)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def run_serving_caption(torch, files: dict, cli_row: dict) -> dict:
+    """The controller and one worker through their `main`s as subprocesses
+    on free ports: `worker.main` serves `cli_caption`'s converted
+    checkpoint (int8, the worker's default, as `cli.py caption`'s; the
+    checkpoint's 8 LLaMA layers through a launcher that gives
+    `from_checkpoint` that depth, as `cli_caption` does). Two caption
+    requests through the controller's `/worker_generate_stream`, one after
+    the other, each text identical to `cli.py caption`'s JSON for the same
+    PNG; latencies beside the CLI's `caption_s`."""
+    import base64
+
+    cport, wport = free_port(), free_port()
+    curl = f"http://127.0.0.1:{cport}"
+    launcher = (
+        "import dataclasses, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "from faithdiff_tpu_torch.captioner import LlamaConfig, agent\n"
+        "load = agent.CaptionAgent.from_checkpoint\n"
+        f"cfg = dataclasses.replace(LlamaConfig.llava_13b(), num_hidden_layers={CLI_CAPTION_LAYERS})\n"
+        "agent.CaptionAgent.from_checkpoint = staticmethod(\n"
+        "    lambda d, **kw: load(d, llama_config=cfg, **kw))\n"
+        "from faithdiff_tpu_torch.serving import worker\n"
+        "worker.main(sys.argv[1:])\n")
+    procs = [start_server(["-m", "faithdiff_tpu_torch.serving.controller", "--host",
+                           "127.0.0.1", "--port", str(cport)], "controller")]
+    try:
+        wait_until(procs[0], lambda: "models" in json.loads(
+            post_json(curl + "/list_models", {}, 5)), "controller")
+        procs.append(start_server(
+            ["-c", launcher, "--controller", curl, "--port", str(wport),
+             "--captioner_dir", files["cap_dir"], "--model_name", "llava"], "worker"))
+        ready_s = wait_until(procs[1], lambda: json.loads(
+            post_json(curl + "/list_models", {}, 5))["models"] == ["llava"], "worker")
+        texts, latency = [], []
+        for name in files["names"]:
+            with open(os.path.join(files["img_dir"], f"{name}.png"), "rb") as f:
+                body = {"model": "llava", "image": base64.b64encode(f.read()).decode()}
+            t0 = time.perf_counter()
+            raw = post_json(curl + "/worker_generate_stream", body)
+            latency.append(time.perf_counter() - t0)
+            chunks = [json.loads(c) for c in raw.split(b"\0") if c.strip()]
+            if not chunks or any(c["error_code"] for c in chunks):
+                fail(f"serving_caption: {name}: {chunks}")
+            texts.append(chunks[-1]["text"])
+            if texts[-1] != files["captions"][name]:
+                fail(f"serving_caption: {name}: {texts[-1]!r} is not cli.py "
+                     f"caption's {files['captions'][name]!r}")
+    finally:
+        stop_servers(procs[::-1])
+    row = dict(check="serving_caption", worker_start_s=ready_s,
+               caption_latency_s=latency, cli_caption_s=cli_row["caption_s"],
+               quant="int8", identical_to_cli=True,
+               caption_chars=[len(t) for t in texts])
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def run_distributed(torch, pipe) -> dict:
+    """A one-rank NCCL group (`parallel.distributed.init_distributed`).
+    The 1024x1536 restore of `run_restore` on the resident pipeline with
+    `tile_group` set (padding, the rank's share, the all_gather) between
+    two runs of the same restore without it: latents and uint8 output equal
+    in every bit, wall seconds of all three. Then one stage-1 micro-step plus optimizer
+    step (batch 2, accum 1, 512 px) under data parallelism and ZeRO
+    (`init_train_state(data_parallel=True)`: the batch rows, the fusion's
+    global batch, averaged gradients, the all-reduced norm, sharded
+    moments, gathered params) against the plain step from the same seeded
+    state and the same draws (after a plain step that warms the card up):
+    loss, every trainable tensor, both moments and the EMA equal in every
+    bit; ms of each, and of a second, warm data-parallel step."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from faithdiff_tpu_torch.parallel import distributed
+
+    distributed.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"distributed: backend {dist.get_backend()}")
+        # NCCL sets its communicator up at the first collective: before timing
+        dist.all_reduce(torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        img = np.random.default_rng(0).integers(0, 256, TILE_PIXELS + (3,), dtype=np.uint8)
+        outs, wall = [], []
+        for group in (None, dist.group.WORLD, None):
+            pipe.tile_group = group
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lat = pipe(img, torch.zeros((1, 77, 2048)), torch.zeros((1, 1280)), seed=0,
+                       output_type="latent")
+            out = pipe.decode(lat, img, output_type="uint8")
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            outs.append((lat, out))
+        pipe.tile_group = None
+        if not all(torch.equal(outs[0][0], lat) and np.array_equal(outs[0][1], out)
+                   for lat, out in outs[1:]):
+            fail("distributed: the tile-group restore differs from the plain one")
+        del outs
+
+        # a first plain micro-step warms the card up and is not kept
+        results, ms = [], []
+        for data_parallel in (False, False, True):
+            state, step, _ = build_train(torch, 1, 2, 1, False, ema_interval=1,
+                                         data_parallel=data_parallel)
+            batch = next(train_batches(2))
+            gen = torch.Generator().manual_seed(21)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(state, batch, gen,
+                     rows=distributed.local_batch_slice(2) if data_parallel else None)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            opt = state.opt.state_dict()
+            results.append(dict(
+                loss=m["loss"].clone(),
+                params={k: p.detach().clone() for k, p in state.trainable().items()},
+                mu={k: v.clone() for k, v in opt["mu"].items()},
+                nu={k: v.clone() for k, v in opt["nu"].items()},
+                ema={k: v.clone() for k, v in state.ema_state_dict().items()}))
+            if data_parallel:       # a second, warm step: timed, not compared
+                start.record()
+                step(state, next(train_batches(2)), gen,
+                     rows=distributed.local_batch_slice(2))
+                end.record()
+                torch.cuda.synchronize()
+                warm_ms = start.elapsed_time(end)
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        _, plain, dp = results
+        same = torch.equal(plain["loss"], dp["loss"]) and all(
+            torch.equal(plain[part][k], dp[part][k])
+            for part in ("params", "mu", "nu", "ema") for k in plain[part])
+        if not same:
+            fail("distributed: the data-parallel step differs from the plain one")
+    finally:
+        pipe.tile_group = None
+        dist.destroy_process_group()
+    row = dict(check="distributed", backend="nccl", world=1,
+               restore_wall_s={"plain": [wall[0], wall[2]], "tile_group": wall[1]},
+               restore_identical=True,
+               micro_step_ms={"plain_warm_up": ms[0], "plain": ms[1], "zero": ms[2],
+                              "zero_second": warm_ms},
+               step_identical=True, trainable_tensors=len(plain["params"]))
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "faithdiff_tpu_torch")):
         print("chip_smoke: faithdiff_tpu_torch/ is not beside this script",
@@ -4105,7 +4560,8 @@ def main() -> int:
         ragged = check_attention_ragged(torch)
         variants = check_attention_variants(torch)
         fused, stats, apply_ = check_group_norm(torch)
-    bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_
+        f32 = check_attention_f32(torch)
+    bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_ + f32
            if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
@@ -4138,7 +4594,7 @@ def main() -> int:
     os.makedirs(root, exist_ok=True)
     try:
         with phase("cli_restore"):
-            ckpt = run_cli_restore(torch, pipe, root)
+            ckpt, cli_restore_row = run_cli_restore(torch, pipe, root)
         with phase("cli_restore_tiled"):
             run_cli_restore_tiled(torch, root, ckpt)
         with phase("cli_restore_prompt"):
@@ -4147,6 +4603,8 @@ def main() -> int:
             run_cli_restore_fp8(torch, pipe8, root, ckpt)
         with phase("png_formats"):
             run_png_formats(torch, root, ckpt)
+        with phase("serving_demo"):
+            run_serving_demo(torch, root, ckpt, cli_restore_row)
         with phase("metrics"):
             run_metrics(torch, root)
     finally:
@@ -4174,6 +4632,8 @@ def main() -> int:
             run_restore_4k(torch, pipe, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    with phase("distributed"):
+        run_distributed(torch, pipe)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -4216,7 +4676,11 @@ def main() -> int:
     cap_root = os.path.join(_build.BUILD_DIR, f"caption_weights_{os.getpid()}")
     try:
         with phase("cli_caption"):
-            run_cli_caption(torch, cap_root)
+            cli_caption_row, caption_files = run_cli_caption(torch, cap_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with phase("serving_caption"):
+            run_serving_caption(torch, caption_files, cli_caption_row)
     finally:
         shutil.rmtree(cap_root, ignore_errors=True)
     gc.collect()
@@ -4249,6 +4713,14 @@ def main() -> int:
         shutil.rmtree(train_root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    fp32_root = os.path.join(_build.BUILD_DIR, f"train_fp32_{os.getpid()}")
+    try:
+        with phase("train_fp32"):
+            fp32 = run_train_fp32(torch, fp32_root)
+    finally:
+        shutil.rmtree(fp32_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("degradation"):
         run_degradation(torch)
     gc.collect()
@@ -4274,7 +4746,9 @@ def main() -> int:
                         "restore_fp8": fp8_counts.get(name, 0),
                         "restore_karras": karras_counts.get(name, 0),
                         "vqa": vqa_counts.get(name, 0),
-                        "caption_train_step": caption_step.get(name, 0)})
+                        "caption_train_step": caption_step.get(name, 0),
+                        "train_fp32_micro_steps": [
+                            st.get(name, 0) for st in fp32["launches_per_micro_step"]]})
 
     kernels = [
         entry("flash_attention_fwd", attn[ATTN_REPORT],
@@ -4297,6 +4771,12 @@ def main() -> int:
         entry("flash_attention_bsnd_fwd", packed[PACKED_REPORT],
               "faithdiff_tpu_torch/csrc/flash_attention.cu",
               "faithdiff_tpu/ops/attention.py:101", packed_counts),
+        entry("flash_attention_f32_fwd", f32[0],
+              "faithdiff_tpu_torch/csrc/flash_attention_f32.cu",
+              "faithdiff_tpu/ops/attention.py:45 (fp32 instance)", fp32["launches"]),
+        entry("flash_attention_f32_bsnd_fwd", f32[-1],
+              "faithdiff_tpu_torch/csrc/flash_attention_f32.cu",
+              "faithdiff_tpu/ops/attention.py:101 (fp32 instance)", fp32["launches"]),
         entry("attention_variant_fwd",
               next(r for r in variants
                    if (tuple(r["shape"]), r["base2"], r["block_k"]) == VARIANT_REPORT),

@@ -46,11 +46,15 @@ its flags are the JAX runner's, see that module). `metrics` runs
 `--sr_dir` [`--gt_dir`], each learned one gated on its weights file; its
 flags are the JAX harness's, plus `--device`).
 
+`restore --tile_devices N` splits each UNet call's tiles over N cards:
+run it under `torchrun --nproc_per_node N`, whose `WORLD_SIZE` must be N
+(checked before any weight is read); each rank runs its share of the
+tiles, every rank holds the same canvas, and rank 0 writes the PNGs.
+`train` under torchrun trains data-parallel (see `training/runner.py`).
+
 What the port does not serve yet raises NotImplementedError naming its
-ROADMAP item: `--tile_devices` above 1
-(§1.5), JPEG and other non-PNG inputs (§1.1: they wait for a JPEG decoder
-shown on the card's machine, `chip_smoke.py`'s `jpeg_probe`), and in
-`train` `--dtype float32` on the card and more than one process.
+ROADMAP item: JPEG and other non-PNG inputs (§1.1: they wait for a JPEG
+decoder shown on the card's machine, `chip_smoke.py`'s `jpeg_probe`).
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ from .config import (CLIPTextConfig, PipelineConfig,
                      tiny_unet_config, tiny_vae_config)
 from .models.clip_text import SDXLTextEncoder
 from .models.tokenizer import HashTokenizer, SDXLTokenizer
+from .parallel import distributed
 from .pipelines.factory import build_pipeline, random_init_
 from .training.text_embeds import precompute_embeds, trim_caption
 from .utils.image import check_image_size, create_hdr_effect
@@ -136,7 +141,8 @@ def _add_restore_args(p: argparse.ArgumentParser) -> None:
                    help="dir with SDXL's tokenizer/ and tokenizer_2/; with "
                         "text_encoders/ the prompts are encoded")
     p.add_argument("--tile_devices", type=int, default=1,
-                   help="1 only: multi-GPU tiles are ROADMAP §1.5")
+                   help="cards that split the tiles; N > 1 runs under "
+                        "torchrun --nproc_per_node N")
     p.add_argument("--negative_prompt", default="",
                    help="real negative prompt text; empty keeps zero "
                         "negative embeds (needs the text towers)")
@@ -151,11 +157,14 @@ def _add_restore_args(p: argparse.ArgumentParser) -> None:
 
 
 def _refuse_unserved(args, images) -> None:
-    """Raise on what this slice of the port does not serve, before any
-    weight is read."""
-    if args.tile_devices != 1:
-        raise NotImplementedError(
-            f"--tile_devices {args.tile_devices}: ROADMAP §1.5 (multi-GPU)")
+    """Raise, before any weight is read, on a `--tile_devices` other than
+    the processes torchrun started (`WORLD_SIZE`, 1 without it) and on what
+    this slice of the port does not serve."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.tile_devices != world:
+        raise ValueError(f"--tile_devices {args.tile_devices} under WORLD_SIZE="
+                         f"{world}: run --tile_devices N under torchrun "
+                         "--nproc_per_node N")
     jpegs = [p for p in images if not p.lower().endswith(".png")]
     if jpegs:
         raise NotImplementedError(f"{jpegs[0]}: JPEG input, {_JPEG_INPUT}")
@@ -227,8 +236,13 @@ def cmd_restore(argv) -> int:
     images = sorted(sum([glob.glob(os.path.join(args.img_dir, e))
                          for e in ("*.png", "*.jpg", "*.jpeg")], []))
     _refuse_unserved(args, images)
+    if args.tile_devices > 1:
+        distributed.init_distributed(device=args.device)
+    lead = distributed.rank() == 0
 
     pipe = load_checkpointed_pipeline(args)
+    if args.tile_devices > 1:
+        pipe.tile_group = torch.distributed.group.WORLD
     encode = make_text_encoder(args)
     if args.negative_prompt and encode is None:
         print("WARNING: --negative_prompt ignored (no text-encoder "
@@ -276,6 +290,8 @@ def cmd_restore(argv) -> int:
                    negative_pooled_prompt_embeds=neg_pooled,
                    output_type="uint8", **ck)
         t4 = time.perf_counter()
+        if not lead:
+            continue                    # every rank holds the same image
         write_png(out_path, out[:h0, :w0])
         t5 = time.perf_counter()
         print(f"restored {name} -> {out_path}: read_s={t1 - t0:.4f} "

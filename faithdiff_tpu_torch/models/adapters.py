@@ -7,13 +7,18 @@ with `batch_first=False`, so the *sequence* axis is the model batch (the
 CFG uncond/cond pair at inference) and every pixel is an independent
 attention batch entry. The released weights were learned that way, so the
 port keeps it: attention mixes the `group` axis per pixel (g=2 at tiled
-inference, one group per tile's CFG pair; g=None = the whole batch).
+inference, one group per tile's CFG pair; g=None = the whole batch). Under
+data parallelism the whole batch is the global one, as in JAX, where the
+batch is sharded over the mesh and the attention still spans it: the
+ranks' tokens are all-gathered (`dist_group`) and each rank keeps its
+own rows of the result.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -80,18 +85,48 @@ class ResidualAttentionBlock(nn.Module):
         return x + self.mlp["c_proj"](h)
 
 
+class _GatherRows(torch.autograd.Function):
+    """The ranks' [b, ...] tensors concatenated in rank order; the backward
+    sums the gradient over the ranks (each rank's loss reaches every rank's
+    rows) and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        b = grad.shape[0] // dist.get_world_size(ctx.group)
+        rank = dist.get_rank(ctx.group)
+        return grad[rank * b:(rank + 1) * b], None
+
+
 def information_fusion(layers: nn.ModuleList, proj: nn.Linear,
                        sample: torch.Tensor, cond: torch.Tensor,
-                       group_size: Optional[int] = None) -> torch.Tensor:
+                       group_size: Optional[int] = None,
+                       dist_group=None) -> torch.Tensor:
     """The fusion forward over UNet post-conv_in features and the condition
     embedding, both [B, C, H, W]; returns the projected `feat_alpha`
     [B, C', H, W]. Attention mixes each contiguous group of `group_size`
-    batch entries per pixel (None: the whole batch is one group)."""
+    batch entries per pixel (None: the whole batch is one group; with a
+    `dist_group`, the batch of all its ranks, of which this rank's rows
+    are returned)."""
+    tokens = torch.cat([sample, cond], dim=1)                # [b, 2c, h, w]
+    if dist_group is not None and group_size is None:
+        local = tokens.shape[0]
+        feat = information_fusion(layers, proj, *_GatherRows.apply(
+            tokens, dist_group).split(sample.shape[1], dim=1))
+        rank = dist.get_rank(dist_group)
+        return feat[rank * local:(rank + 1) * local]
     b, c, h, w = sample.shape
     g = b if group_size is None else group_size
     if b % g:
         raise ValueError(f"fusion group size {g} does not divide batch {b}")
-    tokens = torch.cat([sample, cond], dim=1)                # [b, 2c, h, w]
     # [b//g groups, pixels, g (the attention sequence), 2c]
     tokens = tokens.reshape(b // g, g, 2 * c, h * w).permute(0, 3, 1, 2)
     for layer in layers:

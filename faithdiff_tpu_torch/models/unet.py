@@ -26,6 +26,11 @@ from .unet_blocks import (CrossAttnDownBlock2D, CrossAttnUpBlock2D,
 
 
 class UNet2DConditionModel(nn.Module):
+    # the process group whose ranks' batches form one batch in the fusion
+    # stack's whole-batch attention (data-parallel training; None: this
+    # process's batch)
+    fusion_group = None
+
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
         cfg = self.config = config
@@ -133,7 +138,7 @@ class UNet2DConditionModel(nn.Module):
             feat_alpha = maybe_checkpoint(
                 cfg.remat, information_fusion,
                 self.information_transformer_layes, self.spatial_ch_projs,
-                sample, cond, fusion_group_size)
+                sample, cond, fusion_group_size, self.fusion_group)
             sample = sample + feat_alpha if add_sample else feat_alpha
 
         down_res = [sample]

@@ -2,9 +2,10 @@
 packed ``[batch, seq, heads * head_dim]`` projection outputs.
 
 Counterpart of `faithdiff_tpu/ops/attention.py`. Long attention at head
-dim 64 or 128 goes to the hand-written flash kernels
-(`csrc/flash_attention.cu`: the ports of `_flash_kernel` and
-`_flash_kernel_bsnd`); everything the JAX package keeps outside Pallas
+dim 64 or 128 goes to the hand-written flash kernels: bf16 to
+`csrc/flash_attention.cu`, fp32 to `csrc/flash_attention_f32.cu` (the
+ports of `_flash_kernel` and `_flash_kernel_bsnd`, which JAX runs at
+either dtype); everything the JAX package keeps outside Pallas
 stays plain torch, as XLA ran it there: the 77-token cross-attention, the
 g=2 fusion attention, and the single-head d=512 VAE mid-attention, which
 goes through the chunked online softmax.
@@ -97,19 +98,41 @@ def chunked_attention(q, k, v, scale: float, chunk: int = 1024):
     return (acc / l).to(q.dtype)
 
 
+# the dtypes the flash kernels take: bf16 (`csrc/flash_attention.cu`) and
+# fp32 (`csrc/flash_attention_f32.cu`, the fp32 trainer's)
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check_kernel_inputs(what: str, q, tensors) -> None:
-    """Raise on what the flash kernels do not take: another device, another
-    dtype than bf16, or data that does not start on 16 bytes (a TMA tensor
-    map's base address must)."""
+    """Raise on what the flash kernels do not take: another device, a dtype
+    other than bf16 or fp32, operands of mixed dtypes, or data that does
+    not start on 16 bytes (a TMA tensor map's base address must; the fp32
+    kernel's float loads ask no more than the allocator gives)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{what}: q is {q.dtype}, kernels take bfloat16 or "
+                        "float32")
     for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"{what}: {name} on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: {name} is {t.dtype}, kernel takes bfloat16")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, q is {q.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
+
+
+def _flash_f32_launch(q, k, v, out, strides, dims, scale: float,
+                      causal: bool) -> None:
+    """The fp32 kernel over q, k, v and out as `strides` describes them:
+    12 element strides, per operand those of batch, head and row (columns
+    are unit); `dims` = (batch, heads, q_len, kv_len, head_dim)."""
+    _launch(_build.load("flash_attention_f32"), "fd_flash_attention_f32_fwd",
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             (ctypes.c_longlong * 12)(*strides), *dims, scale * LOG2E,
+             int(causal)), q.device)
 
 
 class TmaGeometry(NamedTuple):
@@ -187,9 +210,9 @@ def _launch(lib, fn_name: str, argtypes, args, device) -> None:
 
 
 def flash_attention(q, k, v, scale: float, causal: bool = False):
-    """Flash attention. A CUDA tensor launches the kernel (bf16, head dim
-    64 or 128, contiguous ``[B, H, S, d]``) and raises on anything the
-    kernel does not take; under autograd its gradient is that of
+    """Flash attention. A CUDA tensor launches a kernel (bf16 or fp32, head
+    dim 64 or 128, contiguous ``[B, H, S, d]``) and raises on anything the
+    kernels do not take; under autograd its gradient is that of
     `attention_reference` (`flash_attention_function`). A CPU tensor
     computes `attention_reference`."""
     if q.device.type == "cpu":
@@ -226,6 +249,12 @@ def _flash_attention_launch(q, k, v, scale: float, causal: bool):
         # masks bottom-right; they agree only for square score matrices
         raise ValueError("flash_attention: causal needs q_len == kv_len")
     out = torch.empty_like(q)
+    if q.dtype == torch.float32:
+        strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+        _flash_f32_launch(q, k, v, out, strides, (b, h, q_len, kv_len, d),
+                          scale, causal)
+        _build.launches["flash_attention_f32_fwd"] += 1
+        return out
     geometry = _geometry_argument((
         bhsd_geometry(q.shape, GROUP_ROWS), bhsd_geometry(k.shape, BLOCK_K),
         bhsd_geometry(v.shape, BLOCK_K), bhsd_geometry(out.shape, GROUP_ROWS)))
@@ -372,9 +401,9 @@ def _check_packed_strides(name: str, t, f: int) -> None:
 
 def flash_attention_packed(q, k, v, heads: int, scale: float):
     """Packed-layout flash attention, non-causal: q ``[b, sq, n*d]``, k/v
-    ``[b, skv, n*d]`` -> ``[b, sq, n*d]``. A CUDA tensor launches the kernel
-    (bf16, d = 64 or 128, packed rows as `_check_packed_strides` describes) and
-    raises on anything it does not take; a CPU tensor computes
+    ``[b, skv, n*d]`` -> ``[b, sq, n*d]``. A CUDA tensor launches a kernel
+    (bf16 or fp32, d = 64 or 128, packed rows as `_check_packed_strides`
+    describes) and raises on anything it does not take; a CPU tensor computes
     `einsum_bsnd`. Under autograd the gradient is that of `einsum_bsnd`
     (`flash_attention_packed_function`)."""
     if q.device.type == "cpu":
@@ -409,6 +438,13 @@ def _flash_packed_launch(q, k, v, heads: int, scale: float):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_packed_strides(name, t, f)
     out = torch.empty((b, sq, f), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        # batch, head, row: a head is d columns into a packed row
+        strides = [x for t in (q, k, v, out) for x in (t.stride(0), d, t.stride(1))]
+        _flash_f32_launch(q, k, v, out, strides, (b, heads, sq, skv, d),
+                          scale, False)
+        _build.launches["flash_attention_f32_bsnd_fwd"] += 1
+        return out
     geometry = _geometry_argument(tuple(
         packed_geometry(t.shape, t.stride(), heads, rows)
         for t, rows in ((q, GROUP_ROWS), (k, BLOCK_K), (v, BLOCK_K),

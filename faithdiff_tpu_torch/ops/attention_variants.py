@@ -47,6 +47,8 @@ def attention_variant(q, k, v, scale: float, base2: bool, block_k: int):
     if q.device.type == "cpu":
         return attention_variant_reference(q, k, v, scale, base2)
     _check_kernel_inputs("attention_variant", q, (("q", q), ("k", k), ("v", v)))
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"attention_variant: q is {q.dtype}, kernel takes bfloat16")
     if block_k not in BLOCK_K:
         raise ValueError(f"attention_variant: block_k {block_k}, kernel takes {BLOCK_K}")
     bh, q_len, d = q.shape

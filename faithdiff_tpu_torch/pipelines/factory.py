@@ -72,12 +72,14 @@ def build_pipeline(
     seed: int = 0,
     tile_chunk: Optional[int] = None,
     use_fp8: bool = False,
+    tile_group=None,
 ) -> FaithDiffPipeline:
     """Build the pipeline on `device` in `dtype`. Each model loads its state
     dict (strict) or, when it is None, gets `random_init_` from a generator
     seeded with `seed` on the device. `tile_chunk` caps the tiles of one
     UNet call (None: every tile in one call). `use_fp8` stores the UNet's
-    weights in fp8 (the module docstring)."""
+    weights in fp8 (the module docstring). `tile_group`, a process group,
+    splits each UNet call's tiles over its ranks (`FaithDiffPipeline`)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_pipeline: device 'cuda' requested but CUDA "
@@ -103,7 +105,7 @@ def build_pipeline(
         ddpm_scheduler=DDPMScheduler(scheduler_config),
         config=pipeline_config,
         vae_scaling_factor=vae_config.scaling_factor,
-        tile_chunk=tile_chunk,
+        tile_chunk=tile_chunk, tile_group=tile_group,
         **_tiled_stages(vae, denoise_encoder, pipeline_config.use_tiled_vae))
 
 

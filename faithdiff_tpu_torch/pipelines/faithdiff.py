@@ -15,6 +15,14 @@ the VAE over blended tiles, and the color fix streams by windows into a
 host canvas. Public layouts follow the JAX package: a [H, W, 3] uint8 or
 float input, NHWC latents in and out; the models run NCHW inside. `seed`
 drives torch.Generators.
+
+With a `tile_group` (a `torch.distributed` process group of N ranks, the
+JAX package's `tile_sharding` over N devices) the tiles are padded as JAX
+pads them, by repeating tiles `idx % num_tiles` up to a multiple of N, or
+of `tile_chunk` above one chunk (`tile_chunk` must be a multiple of N);
+each rank runs the UNet on its N-th of each chunk's rows, the chunk's eps
+are all-gathered, and the padded rows never reach the merge, so every
+rank holds the same canvas. Everything else runs on every rank.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import PipelineConfig
 from ..models.unet import UNet2DConditionModel
@@ -143,6 +152,8 @@ class FaithDiffPipeline:
     latents_std: Optional[Tuple[float, ...]] = None
     # tiles per UNet call; above it the LQ feature map stays unsplit
     tile_chunk: Optional[int] = None
+    # ranks that split each UNet call's tiles (None: this process alone)
+    tile_group: Optional[dist.ProcessGroup] = None
     # above this tile count a checkpoint_dir keeps every step's canvas
     host_loop_tile_threshold: int = 16
     # image [1, 3, H, W] -> LQ features / VAE moments; latents -> image
@@ -232,9 +243,24 @@ class FaithDiffPipeline:
         # LQ features of the whole image; cut into the tile grid up front
         # only when every tile runs in one UNet call
         n = layout.num_tiles
-        chunk = n if self.tile_chunk is None else min(self.tile_chunk, n)
+        lazy = self.tile_chunk is not None and n > self.tile_chunk
+        n_pad, devices, rank = n, 1, 0
+        if self.tile_group is not None:
+            devices = dist.get_world_size(self.tile_group)
+            rank = dist.get_rank(self.tile_group)
+            pad_base = devices
+            if self.tile_chunk:
+                if self.tile_chunk % devices:
+                    raise ValueError(f"tile_chunk {self.tile_chunk} is not a "
+                                     f"multiple of {devices} tile devices")
+                if lazy:
+                    pad_base = self.tile_chunk
+            n_pad = n + (-n) % pad_base
+        # the padded tile list: tile t of it is tile idx[t] of the layout
+        idx = np.arange(n_pad) % n
+        chunk = n_pad if self.tile_chunk is None else min(self.tile_chunk, n_pad)
         image_latents = self.denoise_encoder_apply(image)
-        lq_tiles = split_tiles(image_latents, layout) if chunk == n else None
+        lq_tiles = None if lazy else split_tiles(image_latents, layout)
 
         # initial latents: NCHW noise from a CPU generator (bit-identical to
         # diffusers' randn_tensor); the same generator then draws the VAE
@@ -276,22 +302,32 @@ class FaithDiffPipeline:
         weights = torch.from_numpy(gaussian_tile_weights(*layout.kernel)).to(dev)
 
         def unet_chunk(tiles, i, lo):
-            """One UNet call over tiles [lo, lo + chunk): each tile's CFG
-            pair adjacent, tile-major."""
-            hi = min(lo + chunk, n)
+            """One UNet call over padded tiles [lo, lo + chunk): each tile's
+            CFG pair adjacent, tile-major. Under a tile group this rank
+            runs its share of the rows and the chunk's eps are gathered."""
+            hi = min(lo + chunk, n_pad)
+            per = (hi - lo) // devices
+            lo, hi = lo + rank * per, lo + (rank + 1) * per
+            # a slice where no tile repeats (every tile of a process alone)
+            sel = slice(lo, hi) if hi <= n else torch.from_numpy(idx[lo:hi])
             if lq_tiles is None:
                 lq = split_tiles(image_latents, dataclasses.replace(
-                    layout, offsets=layout.offsets[lo:hi]))
+                    layout, offsets=tuple(layout.offsets[t] for t in idx[lo:hi])))
             else:
-                lq = lq_tiles[lo:hi]
+                lq = lq_tiles[sel]
             rows = 2 * (hi - lo)
             model_in = self.scheduler.scale_model_input(
-                state, tiles[lo:hi].repeat_interleave(2, dim=0), i)
-            return self.unet(model_in, state.timesteps[i], ctx_c[:rows],
-                             pooled_c[:rows],
-                             time_ids[lo:hi].repeat_interleave(2, dim=0),
-                             lq.repeat_interleave(2, dim=0),
-                             add_sample=add_sample, fusion_group_size=2)
+                state, tiles[sel].repeat_interleave(2, dim=0), i)
+            eps = self.unet(model_in, state.timesteps[i], ctx_c[:rows],
+                            pooled_c[:rows],
+                            time_ids[sel].repeat_interleave(2, dim=0),
+                            lq.repeat_interleave(2, dim=0),
+                            add_sample=add_sample, fusion_group_size=2)
+            if self.tile_group is None:
+                return eps
+            parts = [torch.empty_like(eps) for _ in range(devices)]
+            dist.all_gather(parts, eps.contiguous(), group=self.tile_group)
+            return torch.cat(parts)
 
         start = 0
         ck_meta = None
@@ -323,8 +359,9 @@ class FaithDiffPipeline:
 
         for i in range(start, steps):
             tiles = split_tiles(latents, layout)
+            # the padded tiles' rows are dropped before the merge
             eps = torch.cat([unet_chunk(tiles, i, lo)
-                             for lo in range(0, n, chunk)])
+                             for lo in range(0, n_pad, chunk)])[:2 * n]
             eps = eps.reshape(n, 2, *eps.shape[1:])
             eps_uncond, eps_text = eps[:, 0], eps[:, 1]
             eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
@@ -332,7 +369,7 @@ class FaithDiffPipeline:
                 eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
             tiles = self.scheduler.step(state, eps, i, tiles)
             latents = merge_tiles(tiles, layout, weights)
-            if ck_meta is not None:
+            if ck_meta is not None and rank == 0:     # one writer a group
                 _canvas_ckpt_save(checkpoint_dir, ck_meta, i, latents.permute(
                     0, 2, 3, 1).float().cpu().numpy())
         del lq_tiles, image_latents

@@ -12,6 +12,10 @@ the latest is skipped; otherwise the first save of a directory, and every
 step that `save_interval_steps` divides, are written; `force` writes
 whatever the step (and raises where that step exists); past `max_to_keep`
 the oldest save goes. Files load with `torch.load(weights_only=True)`.
+Under data parallelism every rank calls `save` (the sharded optimizer
+state and EMA are gathered, a collective) and rank 0 alone writes; each
+rank `restore`s the whole state and keeps its rows, whatever the number
+of ranks that saved it.
 
 `load_params` reads a model's safetensors directory, as
 `utils/convert_cli` writes `unet/`, `denoise_encoder/` and `vae/`.
@@ -23,6 +27,7 @@ import shutil
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..utils.safetensors import load_dir
 from .train import TrainState
@@ -66,17 +71,24 @@ class CheckpointManager:
         if not force and not self.should_save(step):
             return False
         final = os.path.join(self.directory, str(step))
-        if os.path.exists(final):
+        if step in self._steps or os.path.exists(final):
             raise StepAlreadyExistsError(
                 f"Checkpoint for step {step} already exists.")
-        tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state_to_dict(state, generator), os.path.join(tmp, _FILE))
-        os.replace(tmp, final)
+        sd = state_to_dict(state, generator)
+        writer = not dist.is_initialized() or dist.get_rank() == 0
+        if writer:
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(sd, os.path.join(tmp, _FILE))
+            os.replace(tmp, final)
         self._steps.append(step)
         while len(self._steps) > self.max_to_keep:
-            shutil.rmtree(os.path.join(self.directory, str(self._steps.pop(0))))
+            old = os.path.join(self.directory, str(self._steps.pop(0)))
+            if writer:
+                shutil.rmtree(old)
+        if dist.is_initialized():
+            dist.barrier()          # the files are there before any rank reads
         return True
 
     def restore(self, state: TrainState,
@@ -99,7 +111,7 @@ def state_to_dict(state: TrainState,
           "params": {"unet": state.unet.state_dict(),
                      "denoise_encoder": state.denoise_encoder.state_dict()},
           "opt": state.opt.state_dict(),
-          "ema": {"params": state.ema.params, "step": state.ema.step}}
+          "ema": {"params": state.ema_state_dict(), "step": state.ema.step}}
     if generator is not None:
         sd["generator"] = generator.get_state()
     return sd
@@ -113,7 +125,9 @@ def load_state_dict_into(state: TrainState, sd: dict) -> None:
                                           strict=True)
     state.opt.load_state_dict(sd["opt"])
     for k, shadow in state.ema.params.items():
-        shadow.copy_(sd["ema"]["params"][k])
+        whole = sd["ema"]["params"][k]
+        shadow.copy_(whole if state.ema_shards is None
+                     else state.ema_shards.local(k, whole))
     state.ema.step = int(sd["ema"]["step"])
 
 

@@ -14,11 +14,17 @@ cpu`). The flags and defaults are the JAX runner's, with `--device`, and
 never defines. As there, the loop counts micro-steps for
 `max_train_steps`, `validation_steps`, `checkpointing_steps` and
 `log_every`, and a resumed run restarts its data stream and its noise
-generator from `--seed`.
+generator from `--seed`. `--dtype float32` runs the forward in fp32, on
+the card too (the flash kernels' fp32 instance).
 
-Not served here: `--dtype float32` on the card (the flash kernels have no
-fp32 instantiation, ROADMAP §2) and more than one process (the JAX
-runner's data mesh and ZeRO sharding, ROADMAP §1.5).
+Under torchrun (`torchrun --nproc_per_node N -m faithdiff_tpu_torch.cli
+train ...`) the N processes form the JAX runner's data mesh, one card
+each: every rank draws the same seeded global batch of
+`--train_batch_size` rows (and the same noise) and steps on its
+`parallel.distributed.local_batch_slice`; the gradients are averaged at
+each optimizer step, with ZeRO sharding as the JAX runner has it (the
+AdamW moments at both stages, the EMA too at stage 2; `training/train.py`).
+Rank 0 logs, validates and writes the checkpoints, gathered whole.
 """
 from __future__ import annotations
 
@@ -35,13 +41,10 @@ from ..config import (DenoiseEncoderConfig, PipelineConfig, SchedulerConfig,
                       TrainConfig, UNetConfig, VAEConfig)
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL, DenoiseEncoder
+from ..parallel import distributed
 from ..pipelines.factory import random_init_
 from .checkpoint import CheckpointManager, load_params
 from .train import init_train_state, make_train_step
-
-FP32_ON_CARD = ("ROADMAP §2 (flash kernels: no fp32 instantiation, "
-                "--dtype float32 on the card)")
-MULTI_GPU = "ROADMAP §1.5 (multi-GPU: data mesh and ZeRO sharding)"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -206,17 +209,16 @@ def resolve_stage_defaults(args) -> None:
         args.remat = 1 if args.stage == 2 else 0
 
 
-def _refuse_unserved(args, device: torch.device) -> None:
-    """Raise on what the port does not serve, before anything is built."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={os.environ['WORLD_SIZE']}: {MULTI_GPU}")
-    if device.type == "cuda":
-        if args.dtype == "float32":
-            raise NotImplementedError(f"--dtype float32: {FP32_ON_CARD}")
-        if not torch.cuda.is_available():
-            raise RuntimeError("train: device 'cuda' requested but CUDA is "
-                               "not available (pass --device cpu)")
+def _check_device_and_ranks(args, device: torch.device) -> None:
+    """Raise, before anything is built, on a card that is not there or a
+    batch that torchrun's ranks (`WORLD_SIZE`) do not divide."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train: device 'cuda' requested but CUDA is "
+                           "not available (pass --device cpu)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.train_batch_size % world:
+        raise ValueError(f"--train_batch_size {args.train_batch_size} does not "
+                         f"split over WORLD_SIZE={world} ranks")
 
 
 def build_models(args, ucfg: UNetConfig, vcfg: VAEConfig,
@@ -247,7 +249,10 @@ def main(argv=None, *, unet_config: Optional[UNetConfig] = None,
     args = parse_args(argv)
     resolve_stage_defaults(args)
     device = torch.device(args.device)
-    _refuse_unserved(args, device)
+    _check_device_and_ranks(args, device)
+    distributed.init_distributed(device=args.device)
+    data_parallel = torch.distributed.is_initialized()
+    lead = distributed.rank() == 0
     ucfg = unet_config or UNetConfig()
     vcfg = vae_config or VAEConfig()
     dcfg = denoise_encoder_config or DenoiseEncoderConfig()
@@ -278,7 +283,7 @@ def main(argv=None, *, unet_config: Optional[UNetConfig] = None,
         ucfg.addition_time_embed_dim * 6
 
     unet, de, vae = build_models(args, ucfg, vcfg, dcfg, device)
-    state = init_train_state(cfg, unet, de)
+    state = init_train_state(cfg, unet, de, data_parallel)
     step_fn = make_train_step(unet, de, vae, cfg, SchedulerConfig(),
                               compute_dtype)
 
@@ -289,7 +294,8 @@ def main(argv=None, *, unet_config: Optional[UNetConfig] = None,
     if args.resume_from_checkpoint:
         ckpt.restore(state)
         start_step = state.step
-        print(f"resumed from step {start_step}")
+        if lead:
+            print(f"resumed from step {start_step}")
 
     if args.synthetic_data or not args.hr_dir:
         batches = _synthetic_batches(
@@ -305,37 +311,50 @@ def main(argv=None, *, unet_config: Optional[UNetConfig] = None,
 
     from .logging import MetricLogger
 
-    logger = MetricLogger(os.path.join(args.output_dir, "logs"))
+    logger = MetricLogger(os.path.join(args.output_dir, "logs")) if lead else None
     # the step's randomness, restarted from the seed on resume as in JAX
     generator = torch.Generator().manual_seed(args.seed + 1)
+    # a rank's rows of each global batch
+    share = ({"rows": distributed.local_batch_slice(args.train_batch_size)}
+             if data_parallel else {})
     t0 = time.time()
     for step_idx in range(start_step, args.max_train_steps):
         batch = next(batches)
-        metrics = step_fn(state, batch, generator)
+        metrics = step_fn(state, batch, generator, **share)
         if (step_idx + 1) % args.log_every == 0:
-            loss = float(metrics["loss"])
+            loss = metrics["loss"]
+            if data_parallel:          # the global batch's mean
+                torch.distributed.all_reduce(loss)
+                loss = loss / distributed.world()
+            loss = float(loss)
             rate = args.log_every / (time.time() - t0)
             t0 = time.time()
-            logger.log(step_idx + 1, {"train_loss": loss,
-                                      "grad_norm": float(metrics["grad_norm"]),
-                                      "it_per_s": rate})
-            print(f"step {step_idx + 1} loss {loss:.4f} "
-                  f"({rate:.2f} it/s)", flush=True)
+            if lead:
+                logger.log(step_idx + 1, {"train_loss": loss,
+                                          "grad_norm": float(metrics["grad_norm"]),
+                                          "it_per_s": rate})
+                print(f"step {step_idx + 1} loss {loss:.4f} "
+                      f"({rate:.2f} it/s)", flush=True)
         if args.val_dir and (step_idx + 1) % args.validation_steps == 0:
-            _run_validation(args, ucfg, vcfg, dcfg, state, vae, step_idx + 1)
+            shadow = state.ema_state_dict()       # gathered: a collective
+            if lead:
+                _run_validation(args, ucfg, vcfg, dcfg, state, shadow, vae,
+                                step_idx + 1)
         ckpt.save(step_idx + 1, state, generator=generator)
     # orbax refuses a forced save at a step that exists (the JAX runner
     # then raises when the loop saved its last step): skip it
     if args.max_train_steps not in ckpt.all_steps():
         ckpt.save(args.max_train_steps, state, force=True, generator=generator)
-    logger.close()
+    if lead:
+        logger.close()
     if hasattr(batches, "close"):
         batches.close()             # stops the prefetch thread
-    print("training done")
+    if lead:
+        print("training done")
     return state
 
 
-def _run_validation(args, ucfg, vcfg, dcfg, state, vae, step):
+def _run_validation(args, ucfg, vcfg, dcfg, state, shadow, vae, step):
     """Restore a few validation images with the EMA parameters (bf16) and
     write their strip to `validation/step_{step}.png` (the reference's
     `train_SDXL_stage_1.py:127-195`); with MUSIQ weights
@@ -347,12 +366,12 @@ def _run_validation(args, ucfg, vcfg, dcfg, state, vae, step):
     from ..pipelines.factory import build_pipeline
     from ..utils.png import write_png
     from ..utils.resample import resize_bicubic
-    from .ema import ema_copy_to
+    from .ema import EMAState, ema_copy_to
 
     like = {"unet." + k: v for k, v in state.unet.state_dict().items()}
     like.update({"denoise_encoder." + k: v
                  for k, v in state.denoise_encoder.state_dict().items()})
-    ema = ema_copy_to(state.ema, like)
+    ema = ema_copy_to(EMAState(shadow), like)
 
     def part(prefix):
         return {k[len(prefix):]: v for k, v in ema.items()

@@ -22,7 +22,19 @@ which is optax's running mean with no second gradient buffer.
 
 Mixed precision: fp32 master parameters, the forward in bf16 under
 `torch.autocast` (`compute_dtype`), as flax's `dtype=bfloat16` modules
-over fp32 parameters compute in the JAX runner.
+over fp32 parameters compute in the JAX runner; `compute_dtype=float32`
+runs the forward in fp32 (the flash kernels have an fp32 instance).
+
+Data parallelism with ZeRO (`init_train_state(..., data_parallel=True)`,
+the JAX runner's mesh and shardings over the default process group): each
+rank's micro-steps see its slice of the batch; at each optimizer step the
+accumulated gradients are averaged over the ranks, the global norm for
+clipping is all-reduced over the parts each rank owns, and each rank
+updates its rows of every tensor that `parallel.mesh.LeadingShards`
+shards (AdamW moments kept for those rows only) and all-gathers the
+parameters; the EMA shadow is sharded as well at stage 2 (replicated at
+stage 1, as in JAX). Every rank keeps the whole parameters: the forward
+needs the whole UNet.
 """
 from __future__ import annotations
 
@@ -32,10 +44,12 @@ import math
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..config import SchedulerConfig, TrainConfig
 from ..models.vae import sample_from_moments
+from ..parallel.mesh import LeadingShards
 from ..schedulers import DDPMScheduler
 from .ema import EMAState, ema_init, ema_update
 
@@ -158,21 +172,30 @@ class Optimizer:
     {"train": adamw, "vis": adamw})))` over the trainable parameters, in
     place. `mini_step` counts micro-steps since the last update,
     `gradient_step` the updates (the schedules' and Adam's count); the
-    accumulated gradient is each parameter's `.grad`."""
+    accumulated gradient is each parameter's `.grad`. With `shards` (ZeRO
+    over a process group) the gradients are averaged over its ranks at
+    each update and each rank updates and keeps moments for its rows; the
+    state dict holds the whole moments and the ranks' mean gradient, so a
+    checkpoint resumes on any number of ranks."""
 
     def __init__(self, cfg: TrainConfig, params: Dict[str, nn.Parameter],
-                 labels: Dict[str, str]):
+                 labels: Dict[str, str], shards: Optional[LeadingShards] = None):
         self.cfg = cfg
         self.params = params                       # trainable only
         self.labels = {k: labels[k] for k in params}
+        self.shards = shards
         self.schedules = {"train": make_lr_schedule(cfg),
                           "vis": make_vis_schedule(cfg)}
-        self.mu = {k: torch.zeros_like(p, dtype=torch.float32)
+        self.mu = {k: torch.zeros_like(self.local(k, p), dtype=torch.float32)
                    for k, p in params.items()}
-        self.nu = {k: torch.zeros_like(p, dtype=torch.float32)
+        self.nu = {k: torch.zeros_like(self.local(k, p), dtype=torch.float32)
                    for k, p in params.items()}
         self.mini_step = 0
         self.gradient_step = 0
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of `t` (all of it without shards)."""
+        return t if self.shards is None else self.shards.local(name, t)
 
     def lr(self, label: str, count: Optional[int] = None) -> float:
         return self.schedules[label](self.gradient_step if count is None
@@ -214,31 +237,52 @@ class Optimizer:
             self.gradient_step += 1
         return emit
 
+    def _mean_over_ranks_(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, group=self.shards.group)
+        return t.div_(self.shards.world)
+
     def _apply(self) -> None:
         cfg = self.cfg
         grads = {}
         for name, p in self.params.items():
             grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
-        clip_by_global_norm_(grads.values(), global_norm(grads.values()),
-                             cfg.max_grad_norm)
+        if self.shards is None:
+            g_norm = global_norm(grads.values())
+        else:
+            for g in grads.values():
+                self._mean_over_ranks_(g)
+            # each rank's squares over what it owns, summed over the ranks
+            sq = sum(self.local(k, g).float().square().sum()
+                     for k, g in grads.items() if self.shards.counts(k))
+            dist.all_reduce(sq, group=self.shards.group)
+            g_norm = torch.sqrt(sq)
+        clip_by_global_norm_(grads.values(), g_norm, cfg.max_grad_norm)
         count = self.gradient_step + 1
         lrs = {label: self.lr(label) for label in ("train", "vis")}
         for name, p in self.params.items():
-            adamw_(p, grads[name], self.mu[name], self.nu[name],
-                   lrs[self.labels[name]], count, cfg.adam_beta1,
-                   cfg.adam_beta2, cfg.adam_epsilon, cfg.adam_weight_decay)
+            adamw_(self.local(name, p), self.local(name, grads[name]),
+                   self.mu[name], self.nu[name], lrs[self.labels[name]], count,
+                   cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
+                   cfg.adam_weight_decay)
+            if self.shards is not None:
+                self.shards.gather(name, self.local(name, p), out=p.data)
             p.grad = None
 
     def state_dict(self) -> dict:
-        return {"mu": self.mu, "nu": self.nu, "mini_step": self.mini_step,
-                "gradient_step": self.gradient_step,
-                "acc": {k: p.grad for k, p in self.params.items()
-                        if p.grad is not None}}
+        """The whole state (a collective over the ranks under shards)."""
+        acc = {k: p.grad for k, p in self.params.items() if p.grad is not None}
+        mu, nu = self.mu, self.nu
+        if self.shards is not None:
+            mu = {k: self.shards.gather(k, v) for k, v in mu.items()}
+            nu = {k: self.shards.gather(k, v) for k, v in nu.items()}
+            acc = {k: self._mean_over_ranks_(g.clone()) for k, g in acc.items()}
+        return {"mu": mu, "nu": nu, "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step, "acc": acc}
 
     def load_state_dict(self, sd: dict) -> None:
         for k in self.params:
-            self.mu[k].copy_(sd["mu"][k])
-            self.nu[k].copy_(sd["nu"][k])
+            self.mu[k].copy_(self.local(k, sd["mu"][k]))
+            self.nu[k].copy_(self.local(k, sd["nu"][k]))
             acc = sd["acc"].get(k)
             self.params[k].grad = (None if acc is None else
                                    acc.to(self.params[k].device, copy=True))
@@ -253,23 +297,49 @@ class TrainState:
     denoise_encoder: nn.Module
     opt: Optimizer
     ema: EMAState
+    # ZeRO rows of the EMA shadow (stage 2 under data parallelism)
+    ema_shards: Optional[LeadingShards] = None
 
     def trainable(self) -> Dict[str, nn.Parameter]:
         return self.opt.params
 
+    def ema_sources(self) -> Dict[str, torch.Tensor]:
+        """What each EMA shadow follows: a trainable tensor, or this rank's
+        rows of it when the shadow is sharded."""
+        if self.ema_shards is None:
+            return self.trainable()
+        return {k: self.ema_shards.local(k, p) for k, p in self.trainable().items()}
+
+    def ema_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole EMA shadow (a collective over the ranks when sharded)."""
+        if self.ema_shards is None:
+            return self.ema.params
+        return {k: self.ema_shards.gather(k, v) for k, v in self.ema.params.items()}
+
 
 def init_train_state(cfg: TrainConfig, unet: nn.Module,
-                     denoise_encoder: nn.Module) -> TrainState:
+                     denoise_encoder: nn.Module,
+                     data_parallel: bool = False) -> TrainState:
     """Freeze what the stage does not train (`requires_grad_(False)`) and
-    start the optimizer and the EMA over the rest."""
+    start the optimizer and the EMA over the rest; `data_parallel` shards
+    them over the default process group as the module docstring says, and
+    sets the UNet's `fusion_group` to it."""
     labels = param_labels(unet, denoise_encoder, cfg.stage)
     params = named_params(unet, denoise_encoder)
     for name, p in params.items():
         p.requires_grad_(labels[name] != "freeze")
     trainable = {k: p for k, p in params.items() if labels[k] != "freeze"}
-    return TrainState(step=0, unet=unet, denoise_encoder=denoise_encoder,
-                      opt=Optimizer(cfg, trainable, labels),
-                      ema=ema_init(trainable))
+    shards = None
+    if data_parallel:
+        shards = LeadingShards(trainable)
+        # the fusion stack's whole-batch attention spans the global batch
+        unet.fusion_group = shards.group or dist.group.WORLD
+    state = TrainState(step=0, unet=unet, denoise_encoder=denoise_encoder,
+                       opt=Optimizer(cfg, trainable, labels, shards),
+                       ema=EMAState({}),
+                       ema_shards=shards if cfg.stage == 2 else None)
+    state.ema = ema_init(state.ema_sources())
+    return state
 
 
 def draw_noise(batch_size: int, latent_shape, num_train_timesteps: int,
@@ -304,15 +374,18 @@ def make_train_step(unet: nn.Module, denoise_encoder: nn.Module, vae: nn.Module,
                     cfg: TrainConfig,
                     scheduler_config: SchedulerConfig = SchedulerConfig(),
                     compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
-    """Returns step(state, batch, generator=None, draws=None) -> metrics,
-    one micro-step in place on `state`.
+    """Returns step(state, batch, generator=None, draws=None, rows=None)
+    -> metrics, one micro-step in place on `state`.
 
     batch (numpy or torch, the JAX package's NHWC layout): hr and lq
     [B, H, W, 3] in [-1, 1], prompt_embeds [B, 77, 2048], pooled_embeds
     [B, 1280], add_time_ids [B, 6]. The randomness comes from `draws`
     (the keys of `draw_noise`, e.g. the JAX step's own draws in a test)
-    or is drawn from `generator`. Metrics: `loss` and `grad_norm`, the
-    norm of this micro-step's gradients (device scalars)."""
+    or is drawn from `generator` for the whole batch. `rows` (a slice: a
+    data-parallel rank's share) then keeps those rows of the batch and of
+    the draws, so the ranks together see what one process would. Metrics:
+    `loss` and `grad_norm`, the norm of this micro-step's gradients
+    (device scalars; this rank's)."""
     ddpm = DDPMScheduler(scheduler_config)
     n_train_t = scheduler_config.num_train_timesteps
     scaling = vae.config.scaling_factor
@@ -346,12 +419,16 @@ def make_train_step(unet: nn.Module, denoise_encoder: nn.Module, vae: nn.Module,
         return torch.mean(torch.abs(eps.float() - noise.float()))
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator]
-             = None, draws: Optional[Dict[str, torch.Tensor]] = None) -> dict:
+             = None, draws: Optional[Dict[str, torch.Tensor]] = None,
+             rows: Optional[slice] = None) -> dict:
         if draws is None:
             b, h, w = batch["hr"].shape[:3]
             draws = draw_noise(
                 b, (b, vae.config.latent_channels, h // 8, w // 8), n_train_t,
                 generator, device)
+        if rows is not None:
+            batch = {k: v[rows] for k, v in batch.items()}
+            draws = {k: v[rows] for k, v in draws.items()}
         # a profiler sees the micro-step as the ranges train_step.forward,
         # .backward and .optimizer
         with state.opt.accumulating() as squares:
@@ -365,7 +442,7 @@ def make_train_step(unet: nn.Module, denoise_encoder: nn.Module, vae: nn.Module,
             state.step += 1
             # the EMA gates on optimizer steps (the reference's global_step):
             # `step` counts micro-steps, so the interval scales by grad_accum
-            ema_update(state.ema, state.trainable(), state.step,
+            ema_update(state.ema, state.ema_sources(), state.step,
                        interval=cfg.ema_update_interval * cfg.grad_accum,
                        decay=cfg.ema_decay)
         return {"loss": loss.detach(), "grad_norm": grad_norm}

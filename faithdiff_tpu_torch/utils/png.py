@@ -9,8 +9,9 @@ bits is scaled to 0..255, 16-bit RGB, RGBA and gray + alpha keep their
 high byte, and 16-bit gray (Pillow's mode `I;16`) is clipped to 255, not
 shifted. `decode_png` does the same from a file's bytes and `read_rgb`
 from a path that must name a PNG; both refuse JPEG (NotImplementedError
-naming `JPEG_INPUT`), as the CLI and the eval harnesses do. `write_png`
-writes an [H, W, 3] uint8 array as an 8-bit RGB PNG.
+naming `JPEG_INPUT`), as the CLI and the eval harnesses do. `encode_png`
+gives an [H, W, 3] uint8 array as an 8-bit RGB PNG's bytes; `write_png`
+writes them to a file.
 
 The five scanline filters are undone together along anti-diagonals: a
 byte depends only on its left, upper and upper-left neighbours, so every
@@ -212,12 +213,12 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + payload)))
 
 
-def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
-    """Write an [H, W, 3] uint8 array as an 8-bit RGB PNG, every scanline
-    under the Up filter (the byte above subtracted)."""
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """An [H, W, 3] uint8 array as the bytes of an 8-bit RGB PNG, every
+    scanline under the Up filter (the byte above subtracted)."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"write_png: takes [H, W, 3] uint8, got "
+        raise ValueError(f"encode_png: takes [H, W, 3] uint8, got "
                          f"{img.dtype} {img.shape}")
     height, width = img.shape[:2]
     flat = img.reshape(height, width * 3)
@@ -226,7 +227,13 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
     up[0, 1:] = flat[0]
     np.subtract(flat[1:], flat[:-1], out=up[1:, 1:])
     ihdr = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(up.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
+    """Write `encode_png(img, level)` to `path`."""
+    data = encode_png(img, level)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(up.tobytes(), level))
-                + _chunk(b"IEND", b""))
+        f.write(data)

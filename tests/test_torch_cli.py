@@ -400,37 +400,45 @@ def test_restore_skips_existing_and_says_what_it_ignores(tmp_path):
     assert os.stat(tmp_path / "out" / "b.png").st_mtime_ns == before
 
 
-# `--use_fp8` is served: with it, the multi-GPU flag is still refused
-# before any weight is read
+# `--tile_devices N` runs under torchrun with WORLD_SIZE == N (served, see
+# test_torch_parallel.py): a mismatch, with or without `--use_fp8`, is
+# refused before any weight is read, as a JPEG input is (ROADMAP §1.1)
 @pytest.mark.parametrize("flags", [
     ["--use_fp8", "--tile_devices", "4"], ["--tile_devices", "2"], ["jpeg"]],
     ids=lambda f: f[0])
-def test_restore_refuses_what_it_does_not_serve(tmp_path, flags):
+def test_restore_refuses_what_it_does_not_serve(tmp_path, flags, monkeypatch):
     os.makedirs(tmp_path / "in")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "a.png")
+    error, match = ValueError, r"--tile_devices \d under WORLD_SIZE=\d"
     if flags == ["jpeg"]:
         Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "c.jpg")
-        flags = []
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.\d"):
+        flags, error, match = [], NotImplementedError, r"ROADMAP §1\.1"
+    elif flags == ["--tile_devices", "2"]:
+        monkeypatch.setenv("WORLD_SIZE", "3")     # torchrun started 3
+    with pytest.raises(error, match=match):
         cli.main(["restore", "--tiny", "--device", "cpu", "--img_dir",
                   str(tmp_path / "in"), "--save_dir", str(tmp_path / "out")]
                  + flags)
     assert not os.path.exists(tmp_path / "out")
 
 
-# what each command does not serve: `train` runs on one process only (more
-# is ROADMAP §1.5); `metrics` reads PNGs only (JPEG is ROADMAP §1.1), and
-# refuses a JPEG before any weights load or the device is asked for
-UNSERVED = {"train": ["--output_dir", "x"], "metrics": ["--sr_dir", "{dir}"]}
+# what each command refuses before anything is built: `train` under
+# torchrun (WORLD_SIZE=2, served) a global batch its ranks do not split;
+# `metrics` reads PNGs only (JPEG is ROADMAP §1.1), and refuses a JPEG
+# before any weights load or the device is asked for
+UNSERVED = {"train": (["--output_dir", "{dir}/run", "--device", "cpu",
+                       "--train_batch_size", "3"], ValueError, "does not split"),
+            "metrics": (["--sr_dir", "{dir}"], NotImplementedError, r"ROADMAP §1\.1")}
 
 
 @pytest.mark.parametrize("command", ["train", "metrics"])
 def test_commands_not_ported_raise(command, monkeypatch, tmp_path):
     monkeypatch.setenv("WORLD_SIZE", "2")
     (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.\d"):
-        cli.main([command] + [a.replace("{dir}", str(tmp_path))
-                              for a in UNSERVED[command]])
+    argv, error, match = UNSERVED[command]
+    with pytest.raises(error, match=match):
+        cli.main([command] + [a.replace("{dir}", str(tmp_path)) for a in argv])
+    assert not os.path.exists(tmp_path / "run")
 
 
 def test_unknown_command_prints_usage():

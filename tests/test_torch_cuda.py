@@ -76,7 +76,9 @@ def test_flash_attention_matches_plain(cuda, b, h, sq, skv, causal):
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
     q = torch.randn((1, 1, 1024, 64), device=cuda).bfloat16()
     with pytest.raises(TypeError):
-        flash_attention(q.float(), q.float(), q.float(), 0.125)
+        flash_attention(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(TypeError):          # mixed dtypes
+        flash_attention(q, q.float(), q, 0.125)
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :, :1000].contiguous(),
                         q[:, :, :1000].contiguous(), 0.125, causal=True)
@@ -115,6 +117,58 @@ def test_flash_attention_d128_matches_plain(cuda, b, h, sq, skv, causal):
     torch.cuda.synchronize()
     assert _build.launches["flash_attention_fwd"] == 1
     assert _within(out, attention_reference(q, k, v, 128 ** -0.5, causal))
+
+
+def _within_f32(out, ref):
+    # the fp32 kernel sums in another order and exponentiates in base 2
+    err = (out - ref).abs().max()
+    return bool(torch.isfinite(out).all()) and float(err) <= 2e-5 * float(ref.abs().max())
+
+
+@pytest.fixture
+def no_tf32():
+    # the fp32 plain version in full fp32, as the kernel computes
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,sq,skv,causal", [
+    (2, 10, 1024, 1024, False), (1, 2, 1024, 1024, True),
+    (2, 3, 1000, 1100, False),          # partial q block and K/V tile
+    (1, 3, 1030, 1030, True), (1, 2, 50, 1100, False), (1, 2, 77, 100, False)])
+def test_flash_attention_f32_matches_plain(cuda, no_tf32, d, b, h, sq, skv, causal):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn((b, h, sq, d), generator=g, device=cuda)
+    k = torch.randn((b, h, skv, d), generator=g, device=cuda)
+    v = torch.randn((b, h, skv, d), generator=g, device=cuda)
+    _build.launches.clear()
+    out = flash_attention(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert _build.launches["flash_attention_f32_fwd"] == 1
+    assert _build.launches["flash_attention_fwd"] == 0
+    assert _within_f32(out, attention_reference(q, k, v, d ** -0.5, causal))
+
+
+@pytest.mark.parametrize("b,heads,sq,skv,d", [
+    (2, 10, 1024, 1024, 64), (1, 2, 1000, 1100, 64), (2, 2, 1030, 77, 64),
+    (1, 2, 1024, 1030, 128), (2, 1, 100, 1000, 128), (1, 2, 40, 77, 128)])
+def test_flash_attention_packed_f32_matches_plain(cuda, no_tf32, b, heads, sq, skv, d):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    f = heads * d
+    # q a column slice of a fused [b, sq, 3f] projection: a row stride of 3f
+    q = torch.randn((b, sq, 3 * f), generator=g, device=cuda)[..., f:2 * f]
+    k = torch.randn((b, skv, f), generator=g, device=cuda)
+    v = torch.randn((b, skv, f), generator=g, device=cuda)
+    _build.launches.clear()
+    out = flash_attention_packed(q, k, v, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    assert _build.launches["flash_attention_f32_bsnd_fwd"] == 1
+    assert _within_f32(out, einsum_bsnd(q.contiguous(), k, v, heads, d ** -0.5))
 
 
 def _packed(cuda, b, sq, skv, f, seed):
@@ -177,7 +231,9 @@ def test_flash_attention_matches_its_tile_walk(cuda, d, causal):
 def test_flash_attention_packed_rejects_what_it_does_not_take(cuda):
     q, k, v = _packed(cuda, 1, 1024, 1024, 128, 6)
     with pytest.raises(TypeError):
-        flash_attention_packed(q.float(), k.float(), v.float(), 2, 0.125)
+        flash_attention_packed(q.half(), k.half(), v.half(), 2, 0.125)
+    with pytest.raises(TypeError):          # mixed dtypes
+        flash_attention_packed(q.float(), k, v, 2, 0.125)
     with pytest.raises(ValueError):         # head dim 32
         flash_attention_packed(q, k, v, 4, 0.125)
     with pytest.raises(ValueError):         # heads do not divide n*d

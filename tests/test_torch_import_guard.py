@@ -17,6 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "faithdiff_tpu", "PIL",
 # imported only inside the function that uses it, never at import time: the
 # JAX harness's optional pyiqa passthrough (`eval/metrics.make_learned_metrics`)
 OPTIONAL = ("pyiqa",)
+SERVING_MODULES = ("chat", "controller", "external_worker", "web_demo", "worker")
+PARALLEL_MODULES = ("distributed", "mesh", "tp")
 EVAL_MODULES = ("clipiqa", "dists", "drivers", "fid", "generators", "gpt_review",
                 "lpips", "maniqa", "metrics", "musiq", "niqe", "paq2piq",
                 "scorers", "vqa", "vqa_protocol")
@@ -82,7 +84,11 @@ def test_importing_the_port_loads_no_jax():
         "faithdiff_tpu_torch.data.jpeg, faithdiff_tpu_torch.data.degradation, "
         "faithdiff_tpu_torch.schedulers.ddim, "
         "faithdiff_tpu_torch.training.caption_data, "
-        "faithdiff_tpu_torch.training.caption_train, faithdiff_tpu_torch.eval\n"
+        "faithdiff_tpu_torch.training.caption_train, faithdiff_tpu_torch.eval, "
+        "faithdiff_tpu_torch.utils.profiling, faithdiff_tpu_torch.serving, "
+        "faithdiff_tpu_torch.parallel\n"
+        + "".join(f"import faithdiff_tpu_torch.serving.{m}\n" for m in SERVING_MODULES)
+        + "".join(f"import faithdiff_tpu_torch.parallel.{m}\n" for m in PARALLEL_MODULES)
         + "".join(f"import faithdiff_tpu_torch.eval.{m}\n" for m in EVAL_MODULES) +
         "import chip_smoke\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
@@ -109,6 +115,16 @@ def test_eval_port_is_complete_and_imports_pyiqa_only_where_used():
         top += [node.module for node in tree.body
                 if isinstance(node, ast.ImportFrom) and node.module]
         assert not [t for t in top if t.split(".")[0] in OPTIONAL], m
+
+
+def test_serving_and_parallel_ports_are_complete():
+    """One port module for each module of the JAX package's `serving/` and
+    `parallel/`, and the port's `utils/profiling.py`."""
+    for pkg, names in (("serving", SERVING_MODULES), ("parallel", PARALLEL_MODULES)):
+        jax_side = {p.stem for p in (ROOT / "faithdiff_tpu" / pkg).glob("*.py")}
+        ours = {p.stem for p in (ROOT / "faithdiff_tpu_torch" / pkg).glob("*.py")}
+        assert ours == jax_side == set(names) | {"__init__"}, pkg
+    assert (ROOT / "faithdiff_tpu_torch" / "utils" / "profiling.py").exists()
 
 
 def _non_docstring_strings(path):

@@ -159,11 +159,19 @@ def test_cli_train_validation_musiq_name(tmp_path, tiny_cli, monkeypatch, capsys
 
 
 def test_refusals(tmp_path, monkeypatch):
+    """What the runner refuses before anything is built. `--dtype float32`
+    on the card and WORLD_SIZE > 1 are served: without a card the fp32 run
+    meets only the missing card, and under WORLD_SIZE=4 a batch the ranks
+    do not split, or ranks without a coordinator, are refused."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="--device cpu"):
-            runner.main(["--output_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP §2"):
-        runner.main(["--output_dir", str(tmp_path), "--dtype", "float32"])
+        for extra in ([], ["--dtype", "float32"]):
+            with pytest.raises(RuntimeError, match="--device cpu"):
+                runner.main(["--output_dir", str(tmp_path)] + extra)
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.5"):
+    with pytest.raises(ValueError, match="does not split over WORLD_SIZE=4"):
+        runner.main(["--output_dir", str(tmp_path), "--device", "cpu",
+                     "--train_batch_size", "6"])
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
         runner.main(["--output_dir", str(tmp_path), "--device", "cpu"])
+    assert not os.listdir(tmp_path)
