@@ -6,7 +6,8 @@
 1. Requires a CUDA card; prints its name and power limit.
 2. Builds the port's CUDA kernels from `faithdiff_tpu_torch/csrc/` (one
    `nvcc` per source, all started together).
-3. Holds the flash-attention kernels (BHSD at d=64 and d=128, packed), the
+3. Holds the flash-attention kernels (BHSD at d=64 and d=128, packed; the
+   wide head dims in `attention_wide_d`, step 9d), the
    attention-variant kernel and the GroupNorm kernels against their plain
    PyTorch versions on the card, in bf16 at their paths' shapes, and times
    kernel, plain version, a PyTorch library call that computes the same
@@ -192,8 +193,7 @@
    frozen tensors bitwise still, every trainable tensor changed, the
    projector step's grad_norm equal to the norm over every gradient (the
    frozen LLaMA's too), 40 flash launches (causal, d = 128) a step; ms a
-   step and the peak. `jpeg_probe`: whether libjpeg and `jpeglib.h` exist
-   on the machine (information, not a check).
+   step and the peak.
 9c. fp32 and multi-GPU. `kernel_checks` also holds the fp32 flash kernel
    (`csrc/flash_attention_f32.cu`) against its plain version in full fp32
    (TF32 off) within 2e-5 * max|ref| at [2,10,4096,64], [2,20,1024,64],
@@ -201,9 +201,9 @@
    bound at the fp32 CUDA-core rate and SDPA in fp32 as the yardstick.
    `serving_demo` (after `png_formats`): `serving/web_demo.py` through its
    `main` in a subprocess on `cli_restore`'s checkpoint; its `/restore`
-   of `cli_restore`'s photo identical in every byte to the CLI's PNG; a
-   JPEG upload refused. `distributed` (after `restore_4k`): a one-rank
-   NCCL group; the 1024x1536 restore with the pipeline's `tile_group`
+   of `cli_restore`'s photo identical in every byte to the CLI's PNG, and
+   of the 128 x 128 JPEG fixture to `cli_restore_jpeg`'s PNG.
+   `distributed` (after `restore_4k`): a one-rank NCCL group; the 1024x1536 restore with the pipeline's `tile_group`
    and a stage-1 micro-step plus optimizer step under data parallelism and
    ZeRO, each equal in every bit to the plain one. `serving_caption`
    (after `cli_caption`): the controller and a worker through their
@@ -216,10 +216,33 @@
    micro-step's attention shape against its plain version. Every phase
    times itself with `faithdiff_tpu_torch/utils/profiling.py` (`phase`,
    `time_ms`, `trace`, `device_split`).
+9d. Wide head dims and JPEG. `attention_wide_d` (after `kernel_checks`):
+   the wide flash kernels (d = 192 ... 512: `csrc/flash_attention_wide.cu`
+   in bf16, the fp32 kernel's wide instances) at the VAE's [1,1,1024,512],
+   [1,1,1024,256], [2,4,2048,256] and packed [1,1024,512], each dtype,
+   timed from CUDA graphs beside the plain version, SDPA (and the backend
+   it picked) and the bound; the bf16 kernel at [1,1,16384,512] beside
+   `chunked_attention` (where the gate keeps that shape); every wide head
+   dim at ragged, causal and packed column-slice shapes (bf16 within 1e-2
+   + 8e-3*|ref|, fp32 within 2e-5 * max|ref|, TF32 off). `jpeg_decode`:
+   every fixture of `tests/data/jpeg/` through the port's decoder (the
+   host library built here by the host compiler), each RGB SHA-256 the
+   manifest's Pillow hash; ms a megapixel of the 1024x1536 baseline and
+   progressive fixtures. `native`: `native.decode_batch` over the
+   fixtures equal to `decode_resize` one by one; `tile_merge_host` within
+   1e-5 of `merge_tiles` on the card. `cli_restore_jpeg` (after
+   `cli_restore`): the 128 x 128 JPEG fixture through `cli.py restore`: a
+   256 x 256 PNG, exactly 3 launches of the d = 512 bf16 kernel (denoise
+   encoder, VAE encode, VAE decode) and no other attention kernel, the
+   same bytes as the CLI's restore of the same pixels as a PNG.
+   `train_fp32_wide` (after `train_fp32`): `train --dtype float32` at 256
+   px, one micro-step: 2 launches of the fp32 kernel at d = 512 (VAE
+   encode, denoise encoder), a finite loss.
 10. Prints the card line, a JSON line listing every ported kernel (with
    its launches per training micro-step of both stages, and on the fp8
    and Karras restores, the VQA phase, a caption training step and the
-   fp32 micro-steps), then a
+   fp32 micro-steps; the wide kernels with their launches on
+   `cli_restore_jpeg` and `train_fp32_wide` and their packed row), then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
 
@@ -264,6 +287,35 @@ F32_ATTN_SHAPES = [((2, 10, 4096, 64), False), ((2, 20, 1024, 64), False),
                    ((1, 40, 1024, 128), True)]
 F32_PACKED = ((2, 4096, 640), 10)
 F32_FLASH_TOL = 2e-5
+# the wide head dims (csrc/flash_attention_wide.cu in bf16, the fp32
+# kernel's wide instances): the VAE mid-attention at a 32 x 32 latent
+# ([1, 1, 1024, 512], what a 256 x 256 restore runs three times), d = 256
+# single- and multi-head, and the packed layout at d = 512; each timed in
+# bf16 and fp32. WIDE_LONG: the 16,384-token d = 512 VAE attention of a
+# 1024 px tile, which the gate keeps on chunked_attention (as JAX's),
+# timed beside it for a later decision. Every wide head dim is also held
+# at ragged lengths, causal and on packed column slices.
+WIDE_SHAPES = [((1, 1, 1024, 512), False), ((1, 1, 1024, 256), False),
+               ((2, 4, 2048, 256), False)]
+WIDE_PACKED = [((1, 1024, 512), 1)]
+WIDE_LONG = (1, 1, 16384, 512)
+WIDE_DIMS = (192, 256, 320, 384, 448, 512)
+# the committed JPEG fixtures (tests/make_jpeg_fixtures.py wrote them with
+# Pillow, whose RGB SHA-256 the manifest keeps): JPEG_RESTORE is the 128 x
+# 128 photo that `cli.py restore` at --upscale 2 pads to 256 x 256, one
+# 32 x 32 latent tile, whose denoise encoder, VAE encode and VAE decode
+# each run the d = 512 bf16 kernel once (WIDE_PER_RESTORE); JPEG_TIMED are
+# timed (ms a megapixel, host clock, median of 5)
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+JPEG_RESTORE = "restore_128.jpg"
+JPEG_TIMED = ("photo_1024x1536.jpg", "photo_1024x1536_progressive.jpg")
+WIDE_PER_RESTORE = 3
+# `train --dtype float32` at 256 px: the VAE encode and the denoise
+# encoder each run the fp32 kernel at d = 512 once a micro-step
+FP32_WIDE_RES, FP32_WIDE_PER_STEP = 256, 2
+# native.decode_batch's output size, and tile_merge_host's canvas and tile
+NATIVE_WH = (256, 192)
+NATIVE_CANVAS, NATIVE_TILE = (160, 224), (128, 128)
 # (shape, base2, block_k) of the variant kernel's kernels entry
 VARIANT_REPORT = ((20, 4096, 64), True, 64)
 # (shape NCHW, eps, act, with add): UNet ResNet / Transformer2D norms, the
@@ -618,6 +670,136 @@ def check_attention_f32(torch):
     return rows
 
 
+def sdpa_backend(torch, fn) -> str:
+    """The backend SDPA picked for `fn` (one call): the ATen op it ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for op, backend in (("_scaled_dot_product_flash_attention", "flash"),
+                        ("_scaled_dot_product_cudnn_attention", "cudnn"),
+                        ("_scaled_dot_product_efficient_attention", "efficient"),
+                        ("_scaled_dot_product_attention_math", "math")):
+        if any(op in n for n in names):
+            return backend
+    return "unknown"
+
+
+def check_attention_wide(torch):
+    """The wide head-dim kernels (d = 192 ... 512): the bf16 one
+    (`csrc/flash_attention_wide.cu`, within 1e-2 + 8e-3 * |ref| of the
+    plain version, as the d = 64 / 128 kernels) and the fp32 one's wide
+    instances (TF32 off, within F32_FLASH_TOL * max|ref|), timed at
+    WIDE_SHAPES / WIDE_PACKED with SDPA's time and backend beside them; the
+    bf16 kernel at WIDE_LONG beside chunked_attention; then every wide
+    head dim at ragged lengths, causal, and on packed column slices."""
+    import torch.nn.functional as F
+
+    from faithdiff_tpu_torch.ops.attention import (attention_reference,
+                                                   chunked_attention, einsum_bsnd,
+                                                   flash_attention,
+                                                   flash_attention_packed)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def hold(out, ref, dtype, **keys):
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            tol = F32_FLASH_TOL * float(ref.abs().max())
+            ok, tol_s = float(err.max()) <= tol, f"{F32_FLASH_TOL} * max|ref| = {tol:.3g}"
+        else:
+            ok = bool((err <= 1e-2 + 8e-3 * ref.float().abs()).all())
+            tol_s = "1e-2 + 8e-3*|ref|"
+        row = dict(keys, dtype=str(dtype).split(".")[-1], max_abs_err=float(err.max()),
+                   tol=tol_s, ok=ok and bool(torch.isfinite(out).all()))
+        rows.append(row)
+        return row
+
+    with tf32_off(torch):
+        for dtype, peak, esize in ((torch.bfloat16, PEAK_BF16_FLOPS, 2),
+                                   (torch.float32, PEAK_FP32_FLOPS, 4)):
+            for shape, causal in WIDE_SHAPES:
+                b, h, s, d = shape
+                q, k, v = (randn(shape, dtype) for _ in range(3))
+                scale = d ** -0.5
+                kernel = lambda: flash_attention(q, k, v, scale, causal)  # noqa: E731
+                library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=causal, scale=scale)
+                row = hold(kernel(),
+                           attention_reference(q, k, v, scale, causal), dtype,
+                           shape=list(shape), causal=causal)
+                row.update(flash_timing(
+                    torch, 4 * b * h * d * s * s, 4 * b * h * s * d * esize, kernel,
+                    lambda: attention_reference(q, k, v, scale, causal), library,
+                    peak=peak), sdpa_backend=sdpa_backend(torch, library))
+                print("attention_wide", json.dumps(row), flush=True)
+                del q, k, v
+            for shape, heads in WIDE_PACKED:
+                b, s, f = shape
+                d = f // heads
+                q, k, v = (randn(shape, dtype) for _ in range(3))
+                scale = d ** -0.5
+                views = tuple(t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v))
+                kernel = lambda: flash_attention_packed(q, k, v, heads, scale)  # noqa: E731
+                library = lambda: F.scaled_dot_product_attention(*views, scale=scale)  # noqa: E731
+                row = hold(kernel(),
+                           einsum_bsnd(q, k, v, heads, scale), dtype,
+                           shape=list(shape), heads=heads)
+                row.update(flash_timing(
+                    torch, 4 * b * heads * d * s * s, 4 * b * s * f * esize, kernel,
+                    lambda: einsum_bsnd(q, k, v, heads, scale), library, peak=peak),
+                    sdpa_backend=sdpa_backend(torch, library))
+                print("attention_wide_packed", json.dumps(row), flush=True)
+                del q, k, v, views
+        # the 1024 px tile's VAE attention: the kernel beside the path's
+        # chunked_attention (its plain version here)
+        b, h, s, d = WIDE_LONG
+        q, k, v = (randn(WIDE_LONG, torch.bfloat16) for _ in range(3))
+        scale = d ** -0.5
+        kernel = lambda: flash_attention(q, k, v, scale)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
+        row = hold(kernel(), chunked_attention(q, k, v, scale),
+                   torch.bfloat16, shape=list(WIDE_LONG), causal=False,
+                   plain="chunked_attention")
+        row.update(flash_timing(torch, 4 * b * h * d * s * s, 4 * b * h * s * d * 2,
+                                kernel, lambda: chunked_attention(q, k, v, scale),
+                                library), sdpa_backend=sdpa_backend(torch, library))
+        print("attention_wide_long", json.dumps(row), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+        # every instance, both dtypes: ragged non-causal, causal with a
+        # partial last tile, and packed column slices of fused projections
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in WIDE_DIMS:
+                scale = d ** -0.5
+                for (b, h, sq, skv), causal in (((2, 2, 1000, 1100), False),
+                                                ((1, 2, 1030, 1030), True)):
+                    q = randn((b, h, sq, d), dtype)
+                    k, v = randn((b, h, skv, d), dtype), randn((b, h, skv, d), dtype)
+                    row = hold(flash_attention(q, k, v, scale, causal),
+                               attention_reference(q, k, v, scale, causal), dtype,
+                               case=f"bhsd {[b, h, sq, skv, d]} causal={causal}")
+                    print("attention_wide_ragged", json.dumps(row), flush=True)
+                heads, f = 2, 2 * d
+                q = randn((2, 1030, 3 * f), dtype)[..., f:2 * f]
+                k, v = randn((2, 1100, 2 * f), dtype).split(f, dim=-1)
+                row = hold(flash_attention_packed(q, k, v, heads, scale),
+                           einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       heads, scale), dtype,
+                           case=f"packed column slices {[2, 1030, 1100, f]} heads={heads}")
+                print("attention_wide_ragged", json.dumps(row), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_attention_ragged(torch):
     """Correctness only: the flash kernels where tiles are partial. q and
     kv lengths that are no multiple of the 128-row block or the 128-row
@@ -902,15 +1084,18 @@ def unet_counts(pipe):
 class PathWatch:
     """Forward hooks on a pipeline's models for one run of its path: CUDA
     events around each UNet call, each call's batch, the first and the
-    last call's (args, kwargs), and the (model, shape, itemsize, groups,
+    last call's (args, kwargs), the (model, shape, itemsize, groups,
     aligned) of every GroupNorm call, from which the launch plan predicts
-    the GroupNorm kernels' launches."""
+    the GroupNorm kernels' launches, and the (tokens, channels) of every
+    VAE mid-attention call (VAE and denoise encoder), from which the flash
+    gate predicts the d = 512 kernel's."""
 
     def __init__(self, torch, pipe):
         from faithdiff_tpu_torch.models.layers import GroupNorm
+        from faithdiff_tpu_torch.models.unet_blocks import VaeAttention
 
         self.events, self.last_call, self.gn_seen = [], [], []
-        self.first_call, self.batches = [], []
+        self.first_call, self.batches, self.vae_attention = [], [], []
 
         def record(*_):
             ev = torch.cuda.Event(enable_timing=True)
@@ -938,9 +1123,26 @@ class PathWatch:
                        for m in getattr(pipe, name).modules()
                        if isinstance(m, GroupNorm)]
 
+        def attention_hook(module, args):
+            _, c, h, w = args[0].shape
+            self.vae_attention.append((h * w, c))
+
+        self.hooks += [m.register_forward_pre_hook(attention_hook)
+                       for name in ("vae", "denoise_encoder")
+                       for m in getattr(pipe, name).modules()
+                       if isinstance(m, VaeAttention)]
+
     def remove(self):
         for h in self.hooks:
             h.remove()
+
+    def wide_launches(self) -> int:
+        """Launches of the d = 512 kernel the VAE mid-attention calls seen
+        should make: those the flash gate admits (1024 tokens, a 32 x 32
+        latent or tile; the gate is JAX's there, tests/test_torch_flash_wide)."""
+        from faithdiff_tpu_torch.ops.attention import _flash_gate
+
+        return sum(_flash_gate(n, n, c) for n, c in self.vae_attention)
 
     def unet_ms(self):
         return [a.elapsed_time(b) for a, b in zip(self.events[::2], self.events[1::2])]
@@ -954,6 +1156,8 @@ class PathWatch:
 
         calls = len(self.events) // 2
         expected = {flash: calls * attn_unet}
+        if self.wide_launches():
+            expected["flash_attention_wide_fwd"] = self.wide_launches()
         unet_routes = []
         for model, shape, itemsize, groups, aligned in self.gn_seen:
             plan = plan_group_norm(shape, itemsize, groups, aligned)
@@ -3696,21 +3900,6 @@ def run_caption_train(torch) -> dict:
     return result
 
 
-def jpeg_probe() -> dict:
-    """Whether the card's machine has libjpeg and its header: what the
-    port's JPEG input would need. Information only."""
-    import ctypes.util
-    import glob as _glob
-
-    lib = ctypes.util.find_library("jpeg")
-    headers = sorted(set(_glob.glob("/usr/include/**/jpeglib.h", recursive=True)
-                         + _glob.glob("/usr/local/include/**/jpeglib.h",
-                                      recursive=True)))
-    result = dict(libjpeg=lib, jpeglib_h=headers)
-    print("jpeg_probe", json.dumps(result), flush=True)
-    return result
-
-
 # `metrics`: an SR and a GT dir of METRICS_PAIRS PNG pairs at the restore's
 # 1024x1536 (the last GT at another size, for the harness's BICUBIC
 # resize), NIQE fitted on NIQE_PRISTINE[0] seeded textures of
@@ -4326,18 +4515,202 @@ def run_train_fp32(torch, root: str) -> dict:
     return dict(row, launches=launches)
 
 
-def run_serving_demo(torch, root: str, ckpt: str, cli_row: dict) -> dict:
+def jpeg_manifest() -> dict:
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        return json.load(f)
+
+
+def run_jpeg_decode() -> dict:
+    """`jpeg_decode`: every committed fixture decoded by the port's decoder
+    (`utils/jpeg`, the host library built on this machine), the SHA-256 of
+    its RGB array equal to the manifest's Pillow hash; then the decode of
+    each JPEG_TIMED file, ms a megapixel (host clock, median of 5)."""
+    import hashlib
+
+    from faithdiff_tpu_torch.utils.jpeg import decode_jpeg
+
+    manifest = jpeg_manifest()
+    bad = []
+    for name, entry in sorted(manifest["files"].items()):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            rgb = decode_jpeg(f.read(), name)
+        if (list(rgb.shape) != entry["shape"]
+                or hashlib.sha256(rgb.tobytes()).hexdigest() != entry["rgb_sha256"]):
+            bad.append(name)
+    if bad:
+        fail(f"jpeg_decode: the port's decode of {bad} is not Pillow's")
+    timing = {}
+    for name in JPEG_TIMED:
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rgb = decode_jpeg(data, name)
+            times.append(time.perf_counter() - t0)
+        ms, mp = median(times) * 1e3, rgb.shape[0] * rgb.shape[1] / 1e6
+        timing[name] = dict(ms=ms, ms_per_mp=ms / mp, mp_per_s=mp / ms * 1e3,
+                            progressive=manifest["files"][name]["progressive"],
+                            bytes=len(data))
+    row = dict(check="jpeg_decode", files=len(manifest["files"]), sha256_equal=True,
+               made_by={k: manifest[k] for k in ("pillow", "libjpeg_turbo")},
+               timing=timing)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def run_native(torch) -> dict:
+    """`native`: `native.decode_batch` over the fixtures (8 C++ threads)
+    equal in every bit to `decode_resize` one by one, both timed; and
+    `tile_merge_host` of a latent's tiles within 1e-5 of the port's
+    `pipelines/tiling.merge_tiles` of the same tiles on the card."""
+    import numpy as np
+
+    from faithdiff_tpu_torch import native
+    from faithdiff_tpu_torch.pipelines.tiling import (compute_tile_layout,
+                                                      merge_tiles, split_tiles)
+
+    paths = [os.path.join(JPEG_DIR, n) for n in sorted(jpeg_manifest()["files"])]
+    w, h = NATIVE_WH
+    t0 = time.perf_counter()
+    batch = native.decode_batch(paths, w, h, num_threads=8)
+    t1 = time.perf_counter()
+    single = np.stack([native.decode_resize(p, w, h) for p in paths])
+    t2 = time.perf_counter()
+    if not np.array_equal(batch, single) or not np.isfinite(batch).all():
+        fail("native: decode_batch differs from decode_resize")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((1, 4) + NATIVE_CANVAS, generator=gen, device="cuda")
+    layout = compute_tile_layout(*NATIVE_CANVAS, NATIVE_TILE, overlap=0.5)
+    tiles = split_tiles(x, layout)
+    want = merge_tiles(tiles, layout)[0].permute(1, 2, 0).cpu().numpy()
+    t3 = time.perf_counter()
+    got = native.tile_merge_host(tiles.permute(0, 2, 3, 1).cpu().numpy(),
+                                 np.asarray(layout.offsets, np.int32), NATIVE_CANVAS)
+    t4 = time.perf_counter()
+    err = float(np.abs(got - want).max())
+    if err > 1e-5:
+        fail(f"native: tile_merge_host is {err} from merge_tiles")
+    row = dict(check="native", files=len(paths), out_wh=list(NATIVE_WH),
+               batch_equal_single=True, batch_s=t1 - t0, single_s=t2 - t1,
+               merge_tiles=len(layout.offsets), merge_max_abs_err=err,
+               merge_tol=1e-5, merge_s=t4 - t3)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def run_cli_restore_jpeg(torch, root: str, ckpt: str) -> dict:
+    """`cli_restore_jpeg`: JPEG_RESTORE through `cli.py restore` (default
+    flags, `cli_restore`'s converted weights): a 256 x 256 PNG, the
+    d = 512 bf16 kernel launched WIDE_PER_RESTORE times and no other
+    attention kernel (the UNet's attentions are under 1024 tokens there),
+    the GroupNorm kernels as planned; then the same pixels written as a
+    PNG through the CLI again, whose PNG must be the JPEG's, byte for
+    byte."""
+    import collections
+
+    import numpy as np
+
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops.groupnorm import plan_group_norm
+    from faithdiff_tpu_torch.utils.jpeg import read_jpeg
+    from faithdiff_tpu_torch.utils.png import read_png, write_png
+
+    src = os.path.join(JPEG_DIR, JPEG_RESTORE)
+    stem = os.path.splitext(JPEG_RESTORE)[0]
+    dirs = {k: os.path.join(root, k) for k in ("in_jpeg", "in_jpeg_png",
+                                               "out_jpeg", "out_jpeg_png")}
+    os.makedirs(dirs["in_jpeg"])
+    os.makedirs(dirs["in_jpeg_png"])
+    shutil.copy(src, os.path.join(dirs["in_jpeg"], JPEG_RESTORE))
+    write_png(os.path.join(dirs["in_jpeg_png"], stem + ".png"), read_jpeg(src))
+    with cli_pipeline_watch(torch) as seen:
+        _build.launches.clear()
+        split = run_cli(["restore", "--img_dir", dirs["in_jpeg"], "--save_dir",
+                         dirs["out_jpeg"], "--checkpoint_dir", ckpt])
+        counts = dict(_build.launches)
+    seen.pop("pipe", None)
+    if seen["watch"].wide_launches() != WIDE_PER_RESTORE:
+        fail(f"cli_restore_jpeg: {seen['watch'].vae_attention} VAE attention calls "
+             f"(tokens, channels), {WIDE_PER_RESTORE} at 1024 tokens expected")
+    expected = collections.Counter({"flash_attention_wide_fwd": WIDE_PER_RESTORE})
+    for _, shape, itemsize, groups, aligned in seen["watch"].gn_seen:
+        expected.update(plan_group_norm(shape, itemsize, groups, aligned).counters)
+    if counts != dict(expected):
+        fail(f"cli_restore_jpeg: launches {counts}, expected {dict(expected)}")
+    split_png = run_cli(["restore", "--img_dir", dirs["in_jpeg_png"], "--save_dir",
+                         dirs["out_jpeg_png"], "--checkpoint_dir", ckpt])
+    out = os.path.join(dirs["out_jpeg"], stem + ".png")
+    with open(out, "rb") as f:
+        got = f.read()
+    with open(os.path.join(dirs["out_jpeg_png"], stem + ".png"), "rb") as f:
+        same = f.read() == got
+    img = read_png(out)
+    if img.shape != (256, 256, 3) or not same or not seen["latents_finite"]:
+        fail(f"cli_restore_jpeg: output {img.shape}, same bytes as the PNG's "
+             f"restore: {same}, latents finite: {seen['latents_finite']}")
+    row = dict(check="cli_restore_jpeg", input=JPEG_RESTORE, pixels=list(img.shape[:2]),
+               launches=counts, wide_launches=counts["flash_attention_wide_fwd"],
+               identical_to_png_input=True, load_s=seen["load_s"], **split,
+               png_input_wall_s=split_png["cli_wall_s"],
+               png_input_pipeline_s=split_png["pipeline_s"],
+               out_std=float(np.asarray(img, np.float32).std()))
+    print(json.dumps(row), flush=True)
+    return dict(row, out_png=out)
+
+
+def run_train_fp32_wide(torch, root: str) -> dict:
+    """`train_fp32_wide`: `cli.main(["train", "--dtype", "float32", ...])`
+    at FP32_WIDE_RES px, stage 1, batch 2, one micro-step: its VAE encode
+    and denoise encoder run the fp32 kernel at d = 512 (a 32 x 32 latent),
+    FP32_WIDE_PER_STEP launches and no other attention kernel (the UNet's
+    attentions are under 1024 tokens), with a finite loss. Checkpoint
+    writes are stubbed, as in `train_fp32`."""
+    from faithdiff_tpu_torch import cli
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.training import checkpoint as C
+    from faithdiff_tpu_torch.training import logging as L
+
+    save = C.CheckpointManager.save
+    C.CheckpointManager.save = lambda self, step, *a, **k: True
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    try:
+        if cli.main(["train", "--synthetic_data", "--dtype", "float32",
+                     "--output_dir", os.path.join(root, "fp32_wide_run"),
+                     "--resolution", str(FP32_WIDE_RES), "--train_batch_size", "2",
+                     "--grad_accum", "1", "--max_train_steps", "1",
+                     "--log_every", "1", "--lr_warmup_steps", "0"]) != 0:
+            fail("train_fp32_wide: train returned nonzero")
+    finally:
+        C.CheckpointManager.save = save
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    attention = {n: c for n, c in launches.items() if "attention" in n}
+    loss = L.read_metrics(os.path.join(root, "fp32_wide_run", "logs"))[-1]["train_loss"]
+    if not math.isfinite(loss):
+        fail(f"train_fp32_wide: loss {loss}")
+    if attention != {"flash_attention_f32_wide_fwd": FP32_WIDE_PER_STEP}:
+        fail(f"train_fp32_wide: attention launches {attention}, expected "
+             f"{{'flash_attention_f32_wide_fwd': {FP32_WIDE_PER_STEP}}}")
+    row = dict(check="train_fp32_wide", res=FP32_WIDE_RES, batch=2, micro_steps=1,
+               launches=launches, cli_wall_s=wall, loss=loss)
+    print(json.dumps(row), flush=True)
+    return dict(row, launches=launches)
+
+
+def run_serving_demo(torch, root: str, ckpt: str, cli_row: dict,
+                     jpeg_row: dict) -> dict:
     """`python -m faithdiff_tpu_torch.serving.web_demo` on `cli_restore`'s
     converted checkpoint, on a free port: `GET /` serves the page, and two
     `/restore`s of `cli_restore`'s photo (base64 PNG) at the CLI's defaults
     each return a PNG identical in every byte to the one `cli.py restore`
     wrote; their latencies (the server process's first call, then a warm
-    one) beside the CLI's wall time. A JPEG upload gets the JPEG_INPUT
-    error."""
+    one) beside the CLI's wall time. Then JPEG_RESTORE uploaded as it is
+    (base64 JPEG) returns the PNG `cli_restore_jpeg` wrote for it, byte for
+    byte."""
     import base64
     import urllib.request
-
-    from faithdiff_tpu_torch.utils.png import JPEG_INPUT
 
     port = free_port()
     url = f"http://127.0.0.1:{port}"
@@ -4365,15 +4738,22 @@ def run_serving_demo(torch, root: str, ckpt: str, cli_row: dict) -> dict:
             if got != want:
                 fail(f"web_demo: /restore PNG ({len(got)} bytes) is not the CLI's "
                      f"({len(want)} bytes)")
-        jpeg = base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(16)).decode()
-        refused = json.loads(post_json(url + "/restore", {"image": jpeg}))
-        if JPEG_INPUT not in refused.get("error", ""):
-            fail(f"web_demo: a JPEG upload answered {refused}")
+        with open(os.path.join(JPEG_DIR, JPEG_RESTORE), "rb") as f:
+            jpeg = base64.b64encode(f.read()).decode()
+        with open(jpeg_row["out_png"], "rb") as f:
+            want_jpeg = f.read()
+        t0 = time.perf_counter()
+        reply = json.loads(post_json(url + "/restore", {"image": jpeg}))
+        jpeg_latency = time.perf_counter() - t0
+        if base64.b64decode(reply.get("image", "")) != want_jpeg:
+            fail(f"web_demo: the JPEG upload's /restore is not cli_restore_jpeg's "
+                 f"PNG: {str(reply)[:200]}")
     finally:
         stop_servers([proc])
     row = dict(check="serving_demo", start_s=ready_s, restore_latency_s=latency,
                cli_wall_s=cli_row["cli_wall_s"], cli_pipeline_s=cli_row["pipeline_s"],
-               png_bytes=len(got), identical_to_cli=True, jpeg_refused=True)
+               png_bytes=len(got), identical_to_cli=True,
+               jpeg_upload_identical_to_cli=True, jpeg_restore_latency_s=jpeg_latency)
     print(json.dumps(row), flush=True)
     return row
 
@@ -4561,10 +4941,16 @@ def main() -> int:
         variants = check_attention_variants(torch)
         fused, stats, apply_ = check_group_norm(torch)
         f32 = check_attention_f32(torch)
+    with phase("attention_wide_d"):
+        wide = check_attention_wide(torch)
     bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_ + f32
-           if not r["ok"]]
+           + wide if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
+    with phase("jpeg_decode"):
+        run_jpeg_decode()
+    with phase("native"):
+        run_native(torch)
 
     with phase("restore"):
         pipe = build_restore(torch)
@@ -4595,6 +4981,8 @@ def main() -> int:
     try:
         with phase("cli_restore"):
             ckpt, cli_restore_row = run_cli_restore(torch, pipe, root)
+        with phase("cli_restore_jpeg"):
+            jpeg_row = run_cli_restore_jpeg(torch, root, ckpt)
         with phase("cli_restore_tiled"):
             run_cli_restore_tiled(torch, root, ckpt)
         with phase("cli_restore_prompt"):
@@ -4604,7 +4992,7 @@ def main() -> int:
         with phase("png_formats"):
             run_png_formats(torch, root, ckpt)
         with phase("serving_demo"):
-            run_serving_demo(torch, root, ckpt, cli_restore_row)
+            run_serving_demo(torch, root, ckpt, cli_restore_row, jpeg_row)
         with phase("metrics"):
             run_metrics(torch, root)
     finally:
@@ -4717,6 +5105,10 @@ def main() -> int:
     try:
         with phase("train_fp32"):
             fp32 = run_train_fp32(torch, fp32_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with phase("train_fp32_wide"):
+            fp32_wide = run_train_fp32_wide(torch, fp32_root)
     finally:
         shutil.rmtree(fp32_root, ignore_errors=True)
     gc.collect()
@@ -4729,8 +5121,6 @@ def main() -> int:
         caption_train = run_caption_train(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    with phase("jpeg_probe"):
-        jpeg_probe()
     caption_step = caption_train["launches_per_step"][0]
 
     def entry(name, row, source, replaces, launches=counts):
@@ -4749,6 +5139,26 @@ def main() -> int:
                         "caption_train_step": caption_step.get(name, 0),
                         "train_fp32_micro_steps": [
                             st.get(name, 0) for st in fp32["launches_per_micro_step"]]})
+
+    def wide_entry(name, packed_name, dtype, source, launches):
+        """A wide head-dim kernel: its row at the VAE's [1, 1, 1024, 512],
+        its launches on the path that runs it (`cli_restore_jpeg` in bf16,
+        `train_fp32_wide` in fp32), and the same kernel's packed-layout row
+        under "packed" (no model path runs it packed)."""
+        rows = [r for r in wide if r.get("dtype") == dtype and "ms" in r]
+        row = next(r for r in rows if r["shape"] == list(WIDE_SHAPES[0][0]))
+        packed_row = next(r for r in rows if "heads" in r)
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return dict(name=name, route="cuda", source=source,
+                    replaces=("faithdiff_tpu/ops/attention.py:45 at d = 192 ... 512"
+                              f" ({dtype} instance)"),
+                    launches=launches.get(name, 0), **{k: row[k] for k in keys},
+                    shape=row["shape"], sdpa_backend=row["sdpa_backend"],
+                    packed=dict(name=packed_name,
+                                replaces="faithdiff_tpu/ops/attention.py:101 at d = 192 ... 512",
+                                launches=launches.get(packed_name, 0),
+                                shape=packed_row["shape"], heads=packed_row["heads"],
+                                **{k: packed_row[k] for k in keys}))
 
     kernels = [
         entry("flash_attention_fwd", attn[ATTN_REPORT],
@@ -4777,6 +5187,12 @@ def main() -> int:
         entry("flash_attention_f32_bsnd_fwd", f32[-1],
               "faithdiff_tpu_torch/csrc/flash_attention_f32.cu",
               "faithdiff_tpu/ops/attention.py:101 (fp32 instance)", fp32["launches"]),
+        wide_entry("flash_attention_wide_fwd", "flash_attention_wide_bsnd_fwd",
+                   "bfloat16", "faithdiff_tpu_torch/csrc/flash_attention_wide.cu",
+                   jpeg_row["launches"]),
+        wide_entry("flash_attention_f32_wide_fwd", "flash_attention_f32_wide_bsnd_fwd",
+                   "float32", "faithdiff_tpu_torch/csrc/flash_attention_f32.cu",
+                   fp32_wide["launches"]),
         entry("attention_variant_fwd",
               next(r for r in variants
                    if (tuple(r["shape"]), r["base2"], r["block_k"]) == VARIANT_REPORT),

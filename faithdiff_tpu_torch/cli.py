@@ -52,9 +52,11 @@ run it under `torchrun --nproc_per_node N`, whose `WORLD_SIZE` must be N
 tiles, every rank holds the same canvas, and rank 0 writes the PNGs.
 `train` under torchrun trains data-parallel (see `training/runner.py`).
 
-What the port does not serve yet raises NotImplementedError naming its
-ROADMAP item: JPEG and other non-PNG inputs (§1.1: they wait for a JPEG
-decoder shown on the card's machine, `chip_smoke.py`'s `jpeg_probe`).
+Inputs are PNG or JPEG files (`*.png`, `*.jpg`, `*.jpeg`; `caption` takes
+every file of `--img_dir`), told apart by their first bytes and decoded by
+the port itself as Pillow's `convert("RGB")` decodes them (`utils/png`,
+`utils/jpeg`); each one's header is checked before any weight is read.
+Outputs are PNG.
 """
 from __future__ import annotations
 
@@ -77,8 +79,7 @@ from .parallel import distributed
 from .pipelines.factory import build_pipeline, random_init_
 from .training.text_embeds import precompute_embeds, trim_caption
 from .utils.image import check_image_size, create_hdr_effect
-from .utils.png import JPEG_INPUT as _JPEG_INPUT
-from .utils.png import read_png, write_png
+from .utils.png import check_image, read_rgb, write_png
 from .utils.resample import resize_lanczos
 from .utils.safetensors import load_dir
 
@@ -158,16 +159,15 @@ def _add_restore_args(p: argparse.ArgumentParser) -> None:
 
 def _refuse_unserved(args, images) -> None:
     """Raise, before any weight is read, on a `--tile_devices` other than
-    the processes torchrun started (`WORLD_SIZE`, 1 without it) and on what
-    this slice of the port does not serve."""
+    the processes torchrun started (`WORLD_SIZE`, 1 without it) and on an
+    input that is no PNG or JPEG the decoders take (`check_image`)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if args.tile_devices != world:
         raise ValueError(f"--tile_devices {args.tile_devices} under WORLD_SIZE="
                          f"{world}: run --tile_devices N under torchrun "
                          "--nproc_per_node N")
-    jpegs = [p for p in images if not p.lower().endswith(".png")]
-    if jpegs:
-        raise NotImplementedError(f"{jpegs[0]}: JPEG input, {_JPEG_INPUT}")
+    for path in images:
+        check_image(path)
 
 
 def load_checkpointed_pipeline(args):
@@ -262,7 +262,7 @@ def cmd_restore(argv) -> int:
             print(f"skip {name}")
             continue
         t0 = time.perf_counter()
-        img = read_png(path)
+        img = read_rgb(path)
         caption = ""
         if args.json_dir:
             jpath = os.path.join(args.json_dir, f"{name}.json")
@@ -366,9 +366,8 @@ def cmd_caption(argv) -> int:
     args = p.parse_args(argv)
     paths = sorted(q for q in glob.glob(os.path.join(args.img_dir, "*"))
                    if os.path.isfile(q))
-    others = [q for q in paths if not q.lower().endswith(".png")]
-    if others:
-        raise NotImplementedError(f"{others[0]}: not a PNG; {_JPEG_INPUT}")
+    for path in paths:
+        check_image(path)
     if args.use_bsrnet:
         print("WARNING: --use_bsrnet is not applied (the JAX CLI parses it "
               "and never reads it); the images are captioned as they are")
@@ -381,7 +380,7 @@ def cmd_caption(argv) -> int:
             print(f"skip {name}")
             continue
         t0 = time.perf_counter()
-        caption = agent.caption(read_png(path), seed=0)
+        caption = agent.caption(read_rgb(path), seed=0)
         with open(out_path, "w") as f:
             json.dump({"caption": caption}, f)
         print(f"captioned {name}: caption_s={time.perf_counter() - t0:.4f} "

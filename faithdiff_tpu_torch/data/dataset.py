@@ -5,8 +5,8 @@ Nature and face HR/LR/caption triplets: caption trimming, hflip, a paired
 random crop (HR `resolution`, LR `resolution / scale`), the LR
 re-upscaled by an interpolation drawn from NEAREST / BILINEAR / BICUBIC,
 [-1, 1] normalisation, caption dropout and SDXL micro-conditioning
-(original size, crop offset, target size). PNGs are read by
-`utils/png.read_png` and resized by the port's Pillow-exact resamplers,
+(original size, crop offset, target size). PNGs and JPEGs are read by
+`utils/png.read_rgb` (as Pillow's `convert("RGB")` reads them) and resized by the port's Pillow-exact resamplers,
 so each draw of a `random.Random(seed)` gives the JAX dataset's sample
 bit for bit. Host-side numpy.
 """
@@ -21,13 +21,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..training.text_embeds import trim_caption
-from ..utils.png import read_png
+from ..utils.png import read_rgb
 from ..utils.resample import resize_bicubic, resize_bilinear, resize_nearest
 
 __all__ = ["trim_caption", "read_image", "paired_random_crop", "PairedSample",
            "LocalPairedDataset", "collate", "discover_pairs"]
-
-_INPUT_FORMATS = "ROADMAP §1.1 (restore pipeline options)"
 
 
 def paired_random_crop(
@@ -63,12 +61,8 @@ class PairedSample:
 
 
 def read_image(path: str) -> np.ndarray:
-    """[H, W, 3] uint8 RGB of a PNG; other formats raise."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: not a PNG; other input formats are {_INPUT_FORMATS}: no "
-            "JPEG decoder is known on the card's machine")
-    return read_png(path)
+    """[H, W, 3] uint8 RGB of a PNG or a JPEG."""
+    return read_rgb(path)
 
 
 class LocalPairedDataset:

@@ -18,8 +18,8 @@ scripts:
 
 All functions take a caption `agent` duck-typed as
 `agent.caption(image: np.ndarray, question: str) -> str` so they are
-testable with a stub agent. Images are PNGs (`utils/png`); a JPEG file
-or MMBench row raises naming ROADMAP §1.1.
+testable with a stub agent. Images are PNGs or JPEGs, files and MMBench
+rows alike, decoded by the port (`utils/png.read_rgb` / `decode_image`).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.png import decode_png, read_rgb
+from ..utils.png import decode_image, read_rgb
 
 ALL_OPTIONS = ["A", "B", "C", "D"]
 
@@ -77,7 +77,7 @@ def read_mmbench_tsv(path: str) -> List[Dict]:
 
 
 def _decode_b64_image(data: str) -> np.ndarray:
-    return decode_png(base64.b64decode(data), "MMBench image")
+    return decode_image(base64.b64decode(data), "MMBench image")
 
 
 def build_mmbench_question(row: Dict, options: List[str],

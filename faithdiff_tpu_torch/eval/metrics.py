@@ -14,9 +14,10 @@ Every learned metric also keeps the JAX harness's optional pyiqa
 passthrough, used when that package is installed (`make_learned_metrics`).
 
 Every metric of the reference protocol appears in the output either with a
-value or an explicit `UNAVAILABLE: <reason>` line. Images are PNGs read as
-Pillow's `convert("RGB")` reads them (`utils/png.read_png`); a JPEG in
-`--sr_dir` is refused before any weights load. The networks run on
+value or an explicit `UNAVAILABLE: <reason>` line. Images are PNGs and
+JPEGs read as Pillow's `convert("RGB")` reads them (`utils/png.read_rgb`);
+a file whose header the decoders refuse is refused before any weights
+load. The networks run on
 `--device` (the CUDA card by default) in fp32 with TF32 off.
 """
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.png import JPEG_INPUT, read_png
+from ..utils.png import check_image, read_rgb
 from ..utils.resample import resize_bicubic
 from .lpips import fp32_exact, resolve_device
 
@@ -196,13 +197,12 @@ def metric_availability(
 
 
 def _image_paths(d: str) -> List[str]:
-    """The harness's images of `d` (PNG and JPEG names, sorted); a JPEG
-    raises NotImplementedError naming ROADMAP §1.1."""
+    """The harness's images of `d` (PNG and JPEG names, sorted), each
+    header checked (`utils/png.check_image`)."""
     paths = sorted(sum([glob.glob(os.path.join(d, e))
                         for e in ("*.png", "*.jpg", "*.jpeg")], []))
-    others = [p for p in paths if not p.lower().endswith(".png")]
-    if others:
-        raise NotImplementedError(f"{others[0]}: not a PNG; {JPEG_INPUT}")
+    for path in paths:
+        check_image(path)
     return paths
 
 
@@ -252,13 +252,13 @@ def evaluate_dirs(
     log_f = open(log_path, "w") if log_path else None
     for path in sr_paths:
         name = os.path.basename(path)
-        sr = read_png(path).astype(np.float32) / 255.0
+        sr = read_rgb(path).astype(np.float32) / 255.0
         row: Dict[str, float] = {}
         gt = None
         if gt_dir:
             gt_path = os.path.join(gt_dir, name)
             if os.path.exists(gt_path):
-                gt = read_png(gt_path).astype(np.float32) / 255.0
+                gt = read_rgb(gt_path).astype(np.float32) / 255.0
                 if gt.shape != sr.shape:
                     # Pillow's default resize filter (BICUBIC) after the
                     # JAX harness's truncation to uint8
@@ -364,7 +364,7 @@ def main(argv=None):
     if args.fit_niqe_dir:
         from .niqe import DEFAULT_PARAMS_PATH, fit_niqe_params
 
-        images = [read_png(p) for p in _image_paths(args.fit_niqe_dir)]
+        images = [read_rgb(p) for p in _image_paths(args.fit_niqe_dir)]
         out = args.niqe_params or DEFAULT_PARAMS_PATH
         fit_niqe_params(images, save_path=out)
         print(f"fitted NIQE pristine params from {len(images)} images -> {out}")

@@ -1,6 +1,6 @@
 """VQA-style eval harness for the captioner (counterpart of
 `faithdiff_tpu/eval/vqa.py`), on the port's `CaptionAgent`. Images are
-PNGs (`utils/png.read_rgb`; a JPEG raises naming ROADMAP §1.1).
+PNGs or JPEGs (`utils/png.read_rgb`).
 
 Capability-equivalent to the reference's LLaVA eval answer generators
 (`llava/eval/model_vqa.py:101` et al.): iterate a questions

@@ -1,12 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
-Each source in `faithdiff_tpu_torch/csrc/` is compiled by its own `nvcc`
-into a shared library with a plain C interface, loaded with `ctypes`. All
-sources build in parallel on first use, into `faithdiff_tpu_torch/_build/`
-(listed in `.gitignore`), named by a hash of the flags, the source and
-the `csrc/` headers it includes, so a changed source or header rebuilds
-what includes it and nothing else. Nothing is built or loaded at import
-time.
+Each `.cu` source in `faithdiff_tpu_torch/csrc/` is compiled by its own
+`nvcc` into a shared library with a plain C interface, loaded with
+`ctypes`; the host library (`csrc/host_io.cc`: the JPEG decoder, the
+resize and the tile merge of `native.py`) by the host C++ compiler, with
+no CUDA and no other library. All sources build in parallel on first use,
+into `faithdiff_tpu_torch/_build/` (listed in `.gitignore`), named by a
+hash of the flags, the source and the `csrc/` headers it includes, so a
+changed source or header rebuilds what includes it and nothing else. A
+CUDA library's first use builds every CUDA source; the host library's
+builds only itself, so a machine without `nvcc` (or a card) still decodes
+JPEG. Nothing is built or loaded at import time.
 
 `launches` counts kernel launches by name; each wrapper adds one where it
 launches its kernel, so a run can show which kernels it went through.
@@ -26,9 +30,13 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention", "flash_attention_f32", "group_norm", "nf4_matmul")
+SOURCES = ("flash_attention", "flash_attention_f32", "flash_attention_wide",
+           "group_norm", "nf4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the host library (`.cc`), built by the host compiler
+HOST_SOURCES = ("host_io",)
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 launches: collections.Counter = collections.Counter()
 
@@ -46,13 +54,34 @@ def _nvcc() -> str:
     return path
 
 
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (c++ or g++) found: the host "
+                       "library csrc/host_io.cc (JPEG decoding, native.py) "
+                       "cannot be built")
+
+
+def _source_file(name: str) -> str:
+    return name + (".cc" if name in HOST_SOURCES else ".cu")
+
+
+def _command(name: str, out: str) -> list:
+    src = os.path.join(CSRC, _source_file(name))
+    if name in HOST_SOURCES:
+        return [_cxx(), *CXX_FLAGS, "-o", out, src]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _sources_of(name: str) -> list:
-    """`csrc/<name>.cu` and every `csrc/` file it includes, directly or
-    through another header, in the order first reached."""
-    files, todo = [], [name + ".cu"]
+    """`csrc/<name>.cu` (or `.cc`) and every `csrc/` file it includes,
+    directly or through another header, in the order first reached."""
+    files, todo = [], [_source_file(name)]
     while todo:
         fname = todo.pop(0)
         if fname in files or not os.path.exists(os.path.join(CSRC, fname)):
@@ -64,27 +93,29 @@ def _sources_of(name: str) -> list:
 
 
 def _lib_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = CXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    digest = hashlib.sha256(" ".join(flags).encode())
     for fname in _sources_of(name):
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build_all() -> dict:
-    """Compile every source that has no current library, one `nvcc` per
-    source, all started together. Returns {name: library path}."""
-    paths = {name: _lib_path(name) for name in SOURCES}
+def build_all(names=SOURCES + HOST_SOURCES) -> dict:
+    """Compile every source of `names` (default: all) that has no current
+    library, one compiler process per source, all started together.
+    Returns {name: library path}."""
+    paths = {name: _lib_path(name) for name in names}
     todo = [n for n, p in paths.items() if not os.path.exists(p)]
     if not todo:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    commands = {name: _command(name, f"{paths[name]}.{os.getpid()}.tmp")
+                for name in todo}
     t0 = time.perf_counter()
     procs = {}
-    for name in todo:
-        tmp = f"{paths[name]}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    for name, cmd in commands.items():
+        tmp = cmd[cmd.index("-o") + 1]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -92,7 +123,8 @@ def build_all() -> dict:
         out, _ = proc.communicate()
         build_log[name] = out
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            failed.append(f"{_source_file(name)} ({os.path.basename(commands[name][0])} "
+                          f"exit {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, paths[name])     # atomic: concurrent builders agree
     build_log["seconds"] = time.perf_counter() - t0
@@ -102,14 +134,18 @@ def build_all() -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, building all sources first
-    if needed."""
+    """The loaded library for `csrc/<name>.cu`, building all CUDA sources
+    first if needed, or for the host library `csrc/<name>.cc`, building it
+    alone."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_all()[name])
-            lib.fd_error_string.argtypes = [ctypes.c_int]
-            lib.fd_error_string.restype = ctypes.c_char_p
+            if name in HOST_SOURCES:
+                lib = ctypes.CDLL(build_all((name,))[name])
+            else:
+                lib = ctypes.CDLL(build_all(SOURCES)[name])
+                lib.fd_error_string.argtypes = [ctypes.c_int]
+                lib.fd_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 

@@ -1,14 +1,17 @@
 """Attention over ``[batch, heads, seq, head_dim]`` tensors, and over the
 packed ``[batch, seq, heads * head_dim]`` projection outputs.
 
-Counterpart of `faithdiff_tpu/ops/attention.py`. Long attention at head
-dim 64 or 128 goes to the hand-written flash kernels: bf16 to
-`csrc/flash_attention.cu`, fp32 to `csrc/flash_attention_f32.cu` (the
-ports of `_flash_kernel` and `_flash_kernel_bsnd`, which JAX runs at
-either dtype); everything the JAX package keeps outside Pallas
-stays plain torch, as XLA ran it there: the 77-token cross-attention, the
-g=2 fusion attention, and the single-head d=512 VAE mid-attention, which
-goes through the chunked online softmax.
+Counterpart of `faithdiff_tpu/ops/attention.py`. Long attention goes to
+the hand-written flash kernels (the ports of `_flash_kernel` and
+`_flash_kernel_bsnd`, which JAX runs at either dtype): bf16 at head dim 64
+or 128 to `csrc/flash_attention.cu`, bf16 at the wide head dims 192 ... 512
+to `csrc/flash_attention_wide.cu`, fp32 at all of them to
+`csrc/flash_attention_f32.cu`. The wide ones serve the single-head d = 512
+VAE mid-attention where JAX's gate admits it (1024 tokens: a 32 x 32
+latent). Everything the JAX package keeps outside Pallas stays plain
+torch, as XLA ran it there: the 77-token cross-attention, the g=2 fusion
+attention, and the VAE mid-attention at larger latents, which goes through
+the chunked online softmax.
 """
 from __future__ import annotations
 
@@ -27,10 +30,19 @@ LOG2E = 1.4426950408889634
 
 # the kernel pays off once the score matrix is large (the JAX gate)
 _MIN_FLASH_SEQ = 1024
-# the head dims the kernels are instantiated for: the UNet's (64) and the
-# LLaMA / MPT captioners' (128), every d%64==0 head dim of the repo's
-# models that reaches attention at >= 1024 tokens
+# the head dims of the wgmma kernels (`csrc/flash_attention.cu`): the
+# UNet's (64) and the LLaMA / MPT captioners' (128)
 _FLASH_HEAD_DIMS = (64, 128)
+# the wide head dims, every d % 64 == 0 up to 512, that JAX's gate also
+# admits (`csrc/flash_attention_wide.cu` in bf16): the VAE's d = 512
+_WIDE_HEAD_DIMS = tuple(range(192, 513, 64))
+# JAX's cap on one plane's K/V for its BHSD kernel (`_MAX_PALLAS_KV_ELEMS`),
+# kept at the wide head dims: the 16,384-token d = 512 VAE attention of a
+# 1024 px tile stays on `chunked_attention`, as in JAX
+_MAX_WIDE_KV_ELEMS = 512 * 1024
+# JAX's length condition, kept at the wide head dims: both lengths are
+# multiples of this
+_WIDE_LEN_MULTIPLE = 128
 # score-matrix size above which the plain path becomes memory-hostile
 _MAX_PLAIN_SCORE_ELEMS = 64 * 1024 * 1024
 # the flash kernels' tiles (`csrc/flash_tile.cuh`, `csrc/flash_attention.cu`):
@@ -122,17 +134,68 @@ def _check_kernel_inputs(what: str, q, tensors) -> None:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
+def _check_head_dim(what: str, d: int) -> None:
+    """Raise on a head dim no kernel is instantiated for: one that is no
+    multiple of 64, or one above 512 (no model of the repo has one)."""
+    if d in _FLASH_HEAD_DIMS or d in _WIDE_HEAD_DIMS:
+        return
+    if d > _WIDE_HEAD_DIMS[-1] and d % 64 == 0:
+        raise ValueError(f"{what}: head dim {d} is above {_WIDE_HEAD_DIMS[-1]}, "
+                         "the widest the kernels are built for (ROADMAP §2)")
+    raise ValueError(f"{what}: head dim {d}, kernels take "
+                     f"{_FLASH_HEAD_DIMS + _WIDE_HEAD_DIMS}")
+
+
+def _check_strided_rows(what: str, tensors) -> None:
+    """Raise unless every batch, head and row stride of the wide bf16
+    kernel's operands is a multiple of 8 elements (its 16-byte loads)."""
+    for name, strides in tensors:
+        if any(st % 8 for st in strides):
+            raise ValueError(f"{what}: {name} strides {strides} are not "
+                             "multiples of 8 elements")
+
+
 def _flash_f32_launch(q, k, v, out, strides, dims, scale: float,
                       causal: bool) -> None:
     """The fp32 kernel over q, k, v and out as `strides` describes them:
     12 element strides, per operand those of batch, head and row (columns
     are unit); `dims` = (batch, heads, q_len, kv_len, head_dim)."""
-    _launch(_build.load("flash_attention_f32"), "fd_flash_attention_f32_fwd",
+    _strided_call("flash_attention_f32", "fd_flash_attention_f32_fwd", q, k, v,
+                  out, strides, dims, scale, causal)
+
+
+def _flash_wide_launch(q, k, v, out, strides, dims, scale: float,
+                       causal: bool) -> None:
+    """The wide bf16 kernel (d = 192 ... 512), arguments as
+    `_flash_f32_launch`'s; every stride a multiple of 8 elements."""
+    _check_strided_rows("flash_attention_wide", [
+        (n, tuple(strides[3 * i:3 * i + 3])) for i, n in enumerate("qkvo")])
+    _strided_call("flash_attention_wide", "fd_flash_attention_wide_fwd", q, k,
+                  v, out, strides, dims, scale, causal)
+
+
+def _strided_call(lib: str, fn: str, q, k, v, out, strides, dims,
+                  scale: float, causal: bool) -> None:
+    _launch(_build.load(lib), fn,
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              (ctypes.c_longlong * 12)(*strides), *dims, scale * LOG2E,
              int(causal)), q.device)
+
+
+def _strided_launch(dtype):
+    """The launch of the kernels that take element strides: the fp32 one,
+    or the wide bf16 one (bf16 at d > 128)."""
+    return _flash_f32_launch if dtype == torch.float32 else _flash_wide_launch
+
+
+def _strided_counter(dtype, d: int, packed: bool) -> str:
+    """The `_build.launches` name of a launch of the strided kernels."""
+    name = "flash_attention_f32" if dtype == torch.float32 else "flash_attention"
+    if d in _WIDE_HEAD_DIMS:
+        name += "_wide"
+    return name + ("_bsnd_fwd" if packed else "_fwd")
 
 
 class TmaGeometry(NamedTuple):
@@ -211,10 +274,10 @@ def _launch(lib, fn_name: str, argtypes, args, device) -> None:
 
 def flash_attention(q, k, v, scale: float, causal: bool = False):
     """Flash attention. A CUDA tensor launches a kernel (bf16 or fp32, head
-    dim 64 or 128, contiguous ``[B, H, S, d]``) and raises on anything the
-    kernels do not take; under autograd its gradient is that of
-    `attention_reference` (`flash_attention_function`). A CPU tensor
-    computes `attention_reference`."""
+    dim 64, 128 or 192 ... 512 in steps of 64, contiguous ``[B, H, S, d]``)
+    and raises on anything the kernels do not take; under autograd its
+    gradient is that of `attention_reference` (`flash_attention_function`).
+    A CPU tensor computes `attention_reference`."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale, causal)
     return flash_attention_function(q, k, v, scale, causal)
@@ -232,15 +295,13 @@ def flash_attention_function(q, k, v, scale: float, causal: bool = False, *,
 
 
 def _flash_attention_launch(q, k, v, scale: float, causal: bool):
-    _check_kernel_inputs("flash_attention", q, (("q", q), ("k", k), ("v", v)))
     b, h, q_len, d = q.shape
     kv_len = k.shape[2]
+    _check_head_dim("flash_attention", d)
+    _check_kernel_inputs("flash_attention", q, (("q", q), ("k", k), ("v", v)))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
-    if d not in _FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d}, kernel takes "
-                         f"{_FLASH_HEAD_DIMS}")
     if k.shape != (b, h, kv_len, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -249,11 +310,11 @@ def _flash_attention_launch(q, k, v, scale: float, causal: bool):
         # masks bottom-right; they agree only for square score matrices
         raise ValueError("flash_attention: causal needs q_len == kv_len")
     out = torch.empty_like(q)
-    if q.dtype == torch.float32:
+    if q.dtype == torch.float32 or d in _WIDE_HEAD_DIMS:
         strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
-        _flash_f32_launch(q, k, v, out, strides, (b, h, q_len, kv_len, d),
-                          scale, causal)
-        _build.launches["flash_attention_f32_fwd"] += 1
+        _strided_launch(q.dtype)(q, k, v, out, strides,
+                                 (b, h, q_len, kv_len, d), scale, causal)
+        _build.launches[_strided_counter(q.dtype, d, False)] += 1
         return out
     geometry = _geometry_argument((
         bhsd_geometry(q.shape, GROUP_ROWS), bhsd_geometry(k.shape, BLOCK_K),
@@ -336,20 +397,28 @@ def flash_attention_tiled(q, k, v, scale: float, causal: bool = False, *,
     return out
 
 
-def _flash_gate(q_len: int, kv_len: int, head_dim: int) -> bool:
-    """Long sequences on both sides at a head dim the kernels take. JAX's
-    gate (`multi_head_attention`, `attention_packed`) also asks for lengths
-    that are a multiple of 128 and, in the BHSD kernel, for K/V that fit
-    the TPU's VMEM; the card's kernels mask partial tiles and stream K/V,
-    so the port keeps neither condition and serves a superset."""
-    return (q_len >= _MIN_FLASH_SEQ and kv_len >= _MIN_FLASH_SEQ
-            and head_dim in _FLASH_HEAD_DIMS)
+def _flash_gate(q_len: int, kv_len: int, head_dim: int,
+                packed: bool = False) -> bool:
+    """Long sequences on both sides at a head dim % 64 == 0, as JAX's gate
+    (`multi_head_attention`, `attention_packed`). JAX also asks for
+    lengths that are a multiple of 128 and, in the BHSD kernel, for K/V of
+    at most 512 Ki elements a plane (what fits the TPU's VMEM). At d = 64
+    and 128 the card's kernels mask partial tiles and stream K/V, so the
+    port keeps neither condition there and serves a superset; at the wide
+    head dims it keeps both, so it takes exactly JAX's shapes (and the
+    launch refuses d > 512)."""
+    if q_len < _MIN_FLASH_SEQ or kv_len < _MIN_FLASH_SEQ or head_dim % 64:
+        return False
+    if head_dim in _FLASH_HEAD_DIMS:
+        return True
+    return (q_len % _WIDE_LEN_MULTIPLE == 0 and kv_len % _WIDE_LEN_MULTIPLE == 0
+            and (packed or kv_len * head_dim <= _MAX_WIDE_KV_ELEMS))
 
 
 def flash_eligible(q, k) -> bool:
-    """The ``[B, H, S, d]`` shapes the flash kernel serves: every UNet
-    self-attention (d=64) and the LLaMA causal prefill at >= 1024 tokens
-    (d=128)."""
+    """The ``[B, H, S, d]`` shapes the flash kernels serve: every UNet
+    self-attention (d=64), the LLaMA causal prefill at >= 1024 tokens
+    (d=128) and the VAE mid-attention at 1024 tokens (d=512)."""
     return _flash_gate(q.shape[2], k.shape[2], q.shape[-1])
 
 
@@ -357,8 +426,8 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
                          causal: bool = False, use_flash: Optional[bool] = None):
     """Scaled dot-product attention over ``[B, H, S, D]`` tensors.
 
-    Long attention at d=64 or 128 goes to `flash_attention` (the kernel on
-    CUDA); long non-causal score matrices to `chunked_attention`; the rest
+    Long attention that `flash_eligible` admits goes to `flash_attention`
+    (a kernel on CUDA); long non-causal score matrices to `chunked_attention`; the rest
     to `attention_reference`. `use_flash` overrides the gate, as JAX's
     argument of that name does (False: never the kernel)."""
     if scale is None:
@@ -402,7 +471,7 @@ def _check_packed_strides(name: str, t, f: int) -> None:
 def flash_attention_packed(q, k, v, heads: int, scale: float):
     """Packed-layout flash attention, non-causal: q ``[b, sq, n*d]``, k/v
     ``[b, skv, n*d]`` -> ``[b, sq, n*d]``. A CUDA tensor launches a kernel
-    (bf16 or fp32, d = 64 or 128, packed rows as `_check_packed_strides`
+    (bf16 or fp32, d = 64, 128 or 192 ... 512 in steps of 64, packed rows as `_check_packed_strides`
     describes) and raises on anything it does not take; a CPU tensor computes
     `einsum_bsnd`. Under autograd the gradient is that of `einsum_bsnd`
     (`flash_attention_packed_function`)."""
@@ -421,6 +490,8 @@ def flash_attention_packed_function(q, k, v, heads: int, scale: float, *,
 
 
 def _flash_packed_launch(q, k, v, heads: int, scale: float):
+    if q.dim() == 3 and heads > 0 and q.shape[2] % heads == 0:
+        _check_head_dim("flash_attention_packed", q.shape[2] // heads)
     _check_kernel_inputs("flash_attention_packed", q,
                          (("q", q), ("k", k), ("v", v)))
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
@@ -432,18 +503,15 @@ def _flash_packed_launch(q, k, v, heads: int, scale: float):
         raise ValueError(f"flash_attention_packed: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, {heads} heads")
     d = f // heads
-    if d not in _FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention_packed: head dim {d}, kernel takes "
-                         f"{_FLASH_HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_packed_strides(name, t, f)
     out = torch.empty((b, sq, f), dtype=q.dtype, device=q.device)
-    if q.dtype == torch.float32:
+    if q.dtype == torch.float32 or d in _WIDE_HEAD_DIMS:
         # batch, head, row: a head is d columns into a packed row
         strides = [x for t in (q, k, v, out) for x in (t.stride(0), d, t.stride(1))]
-        _flash_f32_launch(q, k, v, out, strides, (b, heads, sq, skv, d),
-                          scale, False)
-        _build.launches["flash_attention_f32_bsnd_fwd"] += 1
+        _strided_launch(q.dtype)(q, k, v, out, strides,
+                                 (b, heads, sq, skv, d), scale, False)
+        _build.launches[_strided_counter(q.dtype, d, True)] += 1
         return out
     geometry = _geometry_argument(tuple(
         packed_geometry(t.shape, t.stride(), heads, rows)
@@ -461,12 +529,13 @@ def _flash_packed_launch(q, k, v, heads: int, scale: float):
 def attention_packed(q, k, v, heads: int, scale: Optional[float] = None):
     """Attention over packed ``[b, s, n*d]`` activations (the projections'
     natural layout), with no head transposes on either side. Long
-    attention on both sides at d = 64 or 128 (every UNet self-attention)
-    goes to `flash_attention_packed`; the rest (the 77-token
-    cross-attention) to `einsum_bsnd`."""
+    attention on both sides that the gate admits (every UNet
+    self-attention; JAX's packed gate has no K/V cap) goes to
+    `flash_attention_packed`; the rest (the 77-token cross-attention) to
+    `einsum_bsnd`."""
     d = q.shape[2] // heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if _flash_gate(q.shape[1], k.shape[1], d):
+    if _flash_gate(q.shape[1], k.shape[1], d, packed=True):
         return flash_attention_packed(q, k, v, heads, scale)
     return einsum_bsnd(q, k, v, heads, scale)

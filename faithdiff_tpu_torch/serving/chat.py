@@ -1,5 +1,6 @@
 """Interactive captioner chat in the terminal (counterpart of
-`faithdiff_tpu/serving/chat.py`): load the captioner, attach one PNG, then
+`faithdiff_tpu/serving/chat.py`): load the captioner, attach one PNG or
+JPEG, then
 a multi-turn chat over it with a conversation template (vicuna_v1 by
 default).
 

@@ -9,8 +9,9 @@ upload as base64 in `image` and answer JSON. `main` serves the restore
 path of `cli.py restore` on the card: the pipeline of
 `cli.load_checkpointed_pipeline`, HDR, LANCZOS upscale, replicate pad, the
 pipeline, crop; the reply's PNG is `utils/png.encode_png`'s. Uploads are
-decoded by `utils/png.decode_png`: a JPEG upload is answered with
-`{"error": ...}` naming `utils/png.JPEG_INPUT`, as the CLI refuses it.
+PNG or JPEG, decoded by `utils/png.decode_image` as Pillow's
+`convert("RGB")` decodes them; one the decoders refuse is answered with
+`{"error": ...}` naming the reason.
 
     python -m faithdiff_tpu_torch.serving.web_demo [--checkpoint_dir C] \
         [--tokenizer_dir SDXL] [--use_fp8] [--use_tile_vae] \
@@ -27,7 +28,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from ..utils.png import decode_png, encode_png
+from ..utils.png import decode_image, encode_png
 
 _PAGE = """<!doctype html>
 <html><head><title>FaithDiff-TPU demo</title><style>
@@ -70,7 +71,7 @@ if(o.image){outimg.src='data:image/png;base64,'+o.image}status.textContent=o.err
 
 
 def _upload(body: dict) -> np.ndarray:
-    return decode_png(base64.b64decode(body["image"]), "the uploaded image")
+    return decode_image(base64.b64decode(body["image"]), "the uploaded image")
 
 
 class DemoApp:
@@ -88,7 +89,7 @@ class DemoApp:
     def handle_restore(self, body: dict) -> dict:
         try:
             img = _upload(body)
-        except NotImplementedError as e:          # JPEG: ROADMAP §1.1
+        except ValueError as e:          # an image the decoders refuse
             return {"error": str(e)}
         out = self.restore_fn(
             img, body.get("caption", ""),
@@ -109,7 +110,7 @@ class DemoApp:
             return {"error": "no captioner loaded"}
         try:
             img = _upload(body)
-        except NotImplementedError as e:
+        except ValueError as e:
             return {"error": str(e)}
         return {"caption": self.caption_fn(img)}
 

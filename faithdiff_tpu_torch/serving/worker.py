@@ -6,8 +6,8 @@ Registers with the controller, heartbeats every
 serves `/worker_get_status` and `/worker_generate_stream` (one
 `json + b"\0"` chunk a line) under a concurrency limit. The
 `generate_fn(params) -> Iterator[str]` is injected: `main` serves the
-CaptionAgent of a converted checkpoint on the card, an uploaded PNG
-(base64 in `image`, decoded by `utils/png.decode_png`) captioned with the
+CaptionAgent of a converted checkpoint on the card, an uploaded PNG or
+JPEG (base64 in `image`, decoded by `utils/png.decode_image`) captioned with the
 request's `prompt` as the question; tests use stubs.
 
     python -m faithdiff_tpu_torch.serving.worker --controller URL \
@@ -177,9 +177,9 @@ def main(argv=None):
     def generate_fn(body: dict):
         import base64
 
-        from ..utils.png import decode_png
+        from ..utils.png import decode_image
 
-        img = decode_png(base64.b64decode(body["image"]), "the uploaded image")
+        img = decode_image(base64.b64decode(body["image"]), "the uploaded image")
         kw = {}
         if body.get("prompt"):
             kw["question"] = body["prompt"]

@@ -7,11 +7,11 @@ interlaced (Adam7) or not, to the [H, W, 3] uint8 array that
 and transparency (`tRNS`) are dropped, gray is replicated, gray below 8
 bits is scaled to 0..255, 16-bit RGB, RGBA and gray + alpha keep their
 high byte, and 16-bit gray (Pillow's mode `I;16`) is clipped to 255, not
-shifted. `decode_png` does the same from a file's bytes and `read_rgb`
-from a path that must name a PNG; both refuse JPEG (NotImplementedError
-naming `JPEG_INPUT`), as the CLI and the eval harnesses do. `encode_png`
-gives an [H, W, 3] uint8 array as an 8-bit RGB PNG's bytes; `write_png`
-writes them to a file.
+shifted. `decode_png` does the same from a file's bytes. `decode_image` /
+`read_rgb` take a JPEG or a PNG, told apart by their first bytes (`FF D8
+FF` is JPEG, decoded by `utils/jpeg`): the input of the CLI, the eval
+harnesses and the servers. `encode_png` gives an [H, W, 3] uint8 array as
+an 8-bit RGB PNG's bytes; `write_png` writes them to a file.
 
 The five scanline filters are undone together along anti-diagonals: a
 byte depends only on its left, upper and upper-left neighbours, so every
@@ -27,10 +27,9 @@ import zlib
 
 import numpy as np
 
+from .jpeg import decode_jpeg, is_jpeg, jpeg_size
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# why other image formats are refused (the CLI and the eval harnesses)
-JPEG_INPUT = ("ROADMAP §1.1 (input formats): JPEG waits for a decoder shown "
-              "on the card's machine (chip_smoke.py jpeg_probe)")
 # color type -> (channels, allowed bit depths)
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
                 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -163,19 +162,36 @@ def read_png(path: str) -> np.ndarray:
         return decode_png(f.read(), path)
 
 
+def decode_image(data: bytes, path: str = "<image bytes>") -> np.ndarray:
+    """[H, W, 3] uint8 RGB of a JPEG's or a PNG's bytes, as Pillow's
+    `convert("RGB")` gives it; the first bytes say which. Raises ValueError
+    on a malformed or unsupported file."""
+    if is_jpeg(data):
+        return decode_jpeg(data, path)
+    return decode_png(data, path)
+
+
 def read_rgb(path: str) -> np.ndarray:
-    """`read_png` of a `.png` path; any other image (JPEG) raises
-    NotImplementedError naming `JPEG_INPUT`, as the CLI refuses it."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: not a PNG; {JPEG_INPUT}")
-    return read_png(path)
+    """`decode_image` of a file, whatever its name says."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
+
+
+def check_image(path: str) -> None:
+    """Raise ValueError, naming `path`, unless the file is a PNG or a JPEG
+    whose header the decoder takes: the CLI's and the harness's check of
+    every input before a weight is read (a stream damaged past its header
+    raises when it is decoded)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if is_jpeg(data):
+        jpeg_size(data, path)
+    elif data[:8] != _SIGNATURE:
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def decode_png(data: bytes, path: str = "<PNG bytes>") -> np.ndarray:
-    """`read_png` of a PNG file's bytes; `path` names it in errors. A JPEG's
-    bytes raise NotImplementedError naming `JPEG_INPUT`."""
-    if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(f"{path}: JPEG data; {JPEG_INPUT}")
+    """`read_png` of a PNG file's bytes; `path` names it in errors."""
     header = palette = None
     idat = []
     for kind, payload in _chunks(data, path):

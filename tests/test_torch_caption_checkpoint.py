@@ -412,7 +412,8 @@ def test_cli_caption_equals_in_memory_agent(released, monkeypatch, tmp_path, cap
     """`cli.main(["caption", ...])` on the CPU at the tiny configs: its JSON
     equal to the in-memory agent's caption of each image (one image a
     call, seed 0, the agent's defaults); a second run skips both;
-    `--use_bsrnet` gives the same JSON; a JPEG raises."""
+    `--use_bsrnet` gives the same JSON; a JPEG is captioned as Pillow
+    decodes it, and a truncated one raises before the captioner loads."""
     load = ta.CaptionAgent.from_checkpoint
 
     def tiny(ckpt_dir, **kw):
@@ -444,9 +445,17 @@ def test_cli_caption_equals_in_memory_agent(released, monkeypatch, tmp_path, cap
     assert "--use_bsrnet is not applied" in capsys.readouterr().out
     assert {p.name: p.read_text() for p in (tmp_path / "bsr").iterdir()} == \
         {p.name: t for p, t in first.items()}
-    (img_dir / "c_photo.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="not a PNG"):
-        cli.main(argv + ["--save_dir", str(tmp_path / "jpg")])
+    from PIL import Image
+
+    Image.fromarray(images["a_photo"]).save(img_dir / "c_photo.jpg", quality=90)
+    assert cli.main(argv + ["--save_dir", str(tmp_path / "jpg")]) == 0
+    decoded = np.asarray(Image.open(img_dir / "c_photo.jpg").convert("RGB"))
+    assert json.loads((tmp_path / "jpg" / "c_photo.json").read_text()) == {
+        "caption": agent.caption(decoded, seed=0)}
+    (img_dir / "d_photo.jpg").write_bytes(b"\xff\xd8\xff")
+    with pytest.raises(ValueError, match=r"d_photo\.jpg: truncated JPEG"):
+        cli.main(argv + ["--save_dir", str(tmp_path / "jpg2")])
+    assert not (tmp_path / "jpg2").exists()
 
 
 def test_cli_caption_needs_a_card_unless_told(released, tmp_path):

@@ -194,8 +194,14 @@ def jax_side(ckpt):
         unet_params=p["unet"], vae_params=p["vae"],
         denoise_encoder_params=p["denoise_encoder"], dtype=jnp.float32)
 
-    def run(pe, pooled, **kw):
-        return np.asarray(jpipe(padded, pe, pooled, seed=42, output_type="uint8",
+    def run(pe, pooled, image=None, **kw):
+        """The JAX pipeline on `padded`, or on another image of this size
+        taken through the same LANCZOS x2 and pad."""
+        src = padded
+        if image is not None:
+            src = jax_check_image_size(np.asarray(
+                Image.fromarray(image).resize((2 * w, 2 * h), Image.LANCZOS)))[0]
+        return np.asarray(jpipe(src, pe, pooled, seed=42, output_type="uint8",
                                 noise_source="torch", **kw))[:h0, :w0]
 
     key = jax.random.split(jax.random.PRNGKey(42), 3)[2]
@@ -218,6 +224,33 @@ def test_restore_matches_jax_pipeline(ckpt, jax_side, tmp_path, monkeypatch):
     got = np.asarray(Image.open(tmp_path / "out" / "a.png"))
     h, w = IMG_HW
     assert got.shape == (2 * h, 2 * w, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_restore_of_a_jpeg_matches_jax_and_its_png(ckpt, jax_side, tmp_path,
+                                                    monkeypatch):
+    """A JPEG in `--img_dir` is decoded as Pillow decodes it (the JAX CLI's
+    `Image.open(p).convert("RGB")`): its restore is within 1 uint8 level of
+    the JAX pipeline's on Pillow's decode, as a PNG's is (the two pipelines
+    agree to a level, not to the bit), and its PNG is the one the same
+    pixels written as a PNG give, byte for byte."""
+    for d in ("in", "png"):
+        os.makedirs(tmp_path / d)
+    Image.fromarray(jax_side["img"]).save(tmp_path / "in" / "a.jpg", quality=90)
+    decoded = np.asarray(Image.open(tmp_path / "in" / "a.jpg").convert("RGB"))
+    Image.fromarray(decoded).save(tmp_path / "png" / "a.png")
+    monkeypatch.setattr(tvae, "posterior_noise", lambda shape, generator, device:
+                        jax_side["noise"])
+    for d in ("in", "png"):
+        printed = _restore(["--img_dir", str(tmp_path / d),
+                            "--save_dir", str(tmp_path / f"out_{d}"),
+                            "--checkpoint_dir", ckpt["dir"]])
+        assert "restored a ->" in printed
+    data = (tmp_path / "out_in" / "a.png").read_bytes()
+    assert data == (tmp_path / "out_png" / "a.png").read_bytes()
+    got = np.asarray(Image.open(io.BytesIO(data)))
+    want = jax_side["run"](jnp.zeros((1, 77, 64)), jnp.zeros((1, 64)), image=decoded)
+    assert got.shape == want.shape == (2 * IMG_HW[0], 2 * IMG_HW[1], 3)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
@@ -402,7 +435,8 @@ def test_restore_skips_existing_and_says_what_it_ignores(tmp_path):
 
 # `--tile_devices N` runs under torchrun with WORLD_SIZE == N (served, see
 # test_torch_parallel.py): a mismatch, with or without `--use_fp8`, is
-# refused before any weight is read, as a JPEG input is (ROADMAP §1.1)
+# refused before any weight is read, as a JPEG the decoder does not take is
+# (a CMYK one: ROADMAP §1.1)
 @pytest.mark.parametrize("flags", [
     ["--use_fp8", "--tile_devices", "4"], ["--tile_devices", "2"], ["jpeg"]],
     ids=lambda f: f[0])
@@ -411,8 +445,9 @@ def test_restore_refuses_what_it_does_not_serve(tmp_path, flags, monkeypatch):
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "a.png")
     error, match = ValueError, r"--tile_devices \d under WORLD_SIZE=\d"
     if flags == ["jpeg"]:
-        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "in" / "c.jpg")
-        flags, error, match = [], NotImplementedError, r"ROADMAP §1\.1"
+        Image.fromarray(np.zeros((8, 8, 4), np.uint8), "CMYK").save(
+            tmp_path / "in" / "c.jpg")
+        flags, error, match = [], ValueError, r"c\.jpg: a CMYK .*ROADMAP §1\.1"
     elif flags == ["--tile_devices", "2"]:
         monkeypatch.setenv("WORLD_SIZE", "3")     # torchrun started 3
     with pytest.raises(error, match=match):
@@ -424,11 +459,11 @@ def test_restore_refuses_what_it_does_not_serve(tmp_path, flags, monkeypatch):
 
 # what each command refuses before anything is built: `train` under
 # torchrun (WORLD_SIZE=2, served) a global batch its ranks do not split;
-# `metrics` reads PNGs only (JPEG is ROADMAP §1.1), and refuses a JPEG
-# before any weights load or the device is asked for
+# `metrics` a truncated JPEG, before any weights load or the device is
+# asked for
 UNSERVED = {"train": (["--output_dir", "{dir}/run", "--device", "cpu",
                        "--train_batch_size", "3"], ValueError, "does not split"),
-            "metrics": (["--sr_dir", "{dir}"], NotImplementedError, r"ROADMAP §1\.1")}
+            "metrics": (["--sr_dir", "{dir}"], ValueError, r"a\.jpg: truncated JPEG")}
 
 
 @pytest.mark.parametrize("command", ["train", "metrics"])

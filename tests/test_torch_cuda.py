@@ -216,6 +216,73 @@ def test_flash_attention_packed_takes_ragged_column_slices(cuda, d, sq, skv):
                                     v.contiguous(), 2, d ** -0.5))
 
 
+WIDE_DIMS = (192, 256, 320, 384, 448, 512)
+WIDE_COUNTER = {torch.bfloat16: "flash_attention_wide", torch.float32: "flash_attention_f32_wide"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("b,h,sq,skv,causal", [
+    (1, 1, 1024, 1024, False),          # the VAE mid-attention at d = 512
+    (2, 2, 1000, 1100, False), (1, 2, 1030, 1030, True), (1, 1, 40, 77, False)])
+def test_flash_attention_wide_matches_plain(cuda, no_tf32, dtype, d, b, h, sq, skv,
+                                            causal):
+    g = torch.Generator(device=cuda).manual_seed(17)
+    q = torch.randn((b, h, sq, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, h, skv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, h, skv, d), generator=g, device=cuda).to(dtype)
+    _build.launches.clear()
+    out = flash_attention(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {WIDE_COUNTER[dtype] + "_fwd": 1}
+    within = _within if dtype == torch.bfloat16 else _within_f32
+    assert within(out, attention_reference(q, k, v, d ** -0.5, causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("sq,skv", [(1030, 77), (1024, 1024)])
+def test_flash_attention_packed_wide_takes_column_slices(cuda, no_tf32, dtype, d,
+                                                         sq, skv):
+    g = torch.Generator(device=cuda).manual_seed(18)
+    heads, f = 2, 2 * d
+    q = torch.randn((2, sq, 3 * f), generator=g, device=cuda).to(dtype)[..., f:2 * f]
+    k, v = torch.randn((2, skv, 2 * f), generator=g, device=cuda).to(dtype).split(f, dim=-1)
+    _build.launches.clear()
+    out = flash_attention_packed(q, k, v, heads, d ** -0.5)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {WIDE_COUNTER[dtype] + "_bsnd_fwd": 1}
+    within = _within if dtype == torch.bfloat16 else _within_f32
+    assert within(out, einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   heads, d ** -0.5))
+
+
+def test_flash_attention_wide_rejects_what_it_does_not_take(cuda):
+    q = torch.randn((1, 1, 1024, 576), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="ROADMAP §2"):
+        flash_attention(q, q, q, 0.04)
+    q = torch.randn((1, 1, 1024, 200), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="head dim 200"):
+        flash_attention(q, q, q, 0.07)
+
+
+def test_vae_attention_runs_the_wide_kernel_at_a_32_latent(cuda):
+    """The VAE mid-attention takes the d = 512 kernel at a 32 x 32 latent
+    and `chunked_attention` at 64 x 64, as JAX's gate routes it."""
+    from faithdiff_tpu_torch.models.unet_blocks import VaeAttention
+
+    torch.manual_seed(0)
+    attn = VaeAttention(512).to(cuda, torch.bfloat16).eval()
+    for side, launched in ((32, 1), (64, 0)):
+        x = torch.randn((1, 512, side, side), device=cuda).bfloat16()
+        _build.launches.clear()
+        with torch.no_grad():
+            out = attn(x)
+        torch.cuda.synchronize()
+        assert _build.launches["flash_attention_wide_fwd"] == launched
+        assert torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("d,causal", [(64, True), (64, False), (128, True)])
 def test_flash_attention_matches_its_tile_walk(cuda, d, causal):
     """The kernel against the plain walk of its own schedule: the same

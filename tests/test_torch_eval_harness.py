@@ -190,7 +190,7 @@ def test_harness_refuses_jpeg_and_gates_device(dirs, tmp_path):
     jpg.mkdir()
     (jpg / "a.png").write_bytes((dirs / "sr" / "img0.png").read_bytes())
     (jpg / "b.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match=r"b\.jpg: not a PNG; ROADMAP §1\.1"):
+    with pytest.raises(ValueError, match=r"b\.jpg: truncated JPEG"):
         tmetrics.evaluate_dirs(str(jpg), device="cpu")
     assert tmetrics.make_learned_metrics() == jmetrics.make_learned_metrics() == {}
     assert make_lpips(str(tmp_path / "none.npz"), device="cpu") is None

@@ -5,8 +5,9 @@ files byte for byte, scores and CLI output equal. The agent is a stub
 whose answer depends on the image's pixels and the question (so a wrong
 image or prompt shows), and, for `run_vqa`, the port's CaptionAgent at
 the tiny LLaMA / CLIP configs, whose answers the JAX harness replays.
-Images are PNGs: the port reads them itself, and refuses JPEG naming
-ROADMAP §1.1, where the JAX harness goes through PIL."""
+Images are PNGs and JPEGs: the port reads them itself (the JAX harness
+through PIL), and refuses the JPEGs its decoder does not take naming
+ROADMAP §1.1."""
 import base64
 import csv
 import io
@@ -86,18 +87,28 @@ def test_run_vqa_and_loader_write_jax_records(vqa_files, tmp_path):
 
 
 def test_jpeg_images_are_refused(vqa_files, tmp_path):
+    """Only the JPEGs the port's decoder does not take are refused (a CMYK
+    one: ROADMAP §1.1); a YCbCr JPEG gives the JAX harness's answers, and an
+    MMBench row's JPEG decodes as Pillow decodes it."""
     qfile, imgs = vqa_files
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(f"{imgs}/im0.jpg")
+    img = RNG.integers(0, 256, (9, 11, 3), dtype=np.uint8)
+    Image.fromarray(img).save(f"{imgs}/im0.jpg", quality=85)
+    Image.fromarray(np.zeros((8, 8, 4), np.uint8), "CMYK").save(f"{imgs}/im1.jpg")
     q = tmp_path / "jq.jsonl"
     q.write_text(json.dumps({"question_id": 0, "image": "im0.jpg", "text": "?"}) + "\n")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.1"):
-        tvqa.run_vqa(PixelAgent(), str(q), imgs, str(tmp_path / "a.jsonl"))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.1"):
-        tgen.run_vqa_loader(PixelAgent(), str(q), imgs, str(tmp_path / "b.jsonl"))
+    tvqa.run_vqa(PixelAgent(), str(q), imgs, str(tmp_path / "a.jsonl"))
+    jvqa.run_vqa(PixelAgent(), str(q), imgs, str(tmp_path / "ja.jsonl"))
+    _same_file(tmp_path / "a.jsonl", tmp_path / "ja.jsonl")
+    q.write_text(json.dumps({"question_id": 1, "image": "im1.jpg", "text": "?"}) + "\n")
+    with pytest.raises(ValueError, match=r"im1\.jpg: a CMYK .*ROADMAP §1\.1"):
+        tvqa.run_vqa(PixelAgent(), str(q), imgs, str(tmp_path / "b.jsonl"))
+    with pytest.raises(ValueError, match=r"im1\.jpg: a CMYK .*ROADMAP §1\.1"):
+        tgen.run_vqa_loader(PixelAgent(), str(q), imgs, str(tmp_path / "c.jsonl"))
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.1"):
-        tgen._decode_b64_image(base64.b64encode(buf.getvalue()).decode())
+    Image.fromarray(img).save(buf, format="JPEG")
+    assert np.array_equal(
+        tgen._decode_b64_image(base64.b64encode(buf.getvalue()).decode()),
+        np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB")))
 
 
 def _mmbench_tsv(path):

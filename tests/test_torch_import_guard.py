@@ -86,7 +86,8 @@ def test_importing_the_port_loads_no_jax():
         "faithdiff_tpu_torch.training.caption_data, "
         "faithdiff_tpu_torch.training.caption_train, faithdiff_tpu_torch.eval, "
         "faithdiff_tpu_torch.utils.profiling, faithdiff_tpu_torch.serving, "
-        "faithdiff_tpu_torch.parallel\n"
+        "faithdiff_tpu_torch.parallel, faithdiff_tpu_torch.utils.jpeg, "
+        "faithdiff_tpu_torch.native\n"
         + "".join(f"import faithdiff_tpu_torch.serving.{m}\n" for m in SERVING_MODULES)
         + "".join(f"import faithdiff_tpu_torch.parallel.{m}\n" for m in PARALLEL_MODULES)
         + "".join(f"import faithdiff_tpu_torch.eval.{m}\n" for m in EVAL_MODULES) +
@@ -99,6 +100,16 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has one at the same path in the
+    port (`native.py` was the last, over the port's own host library)."""
+    jax_modules = {p.relative_to(ROOT / "faithdiff_tpu")
+                   for p in (ROOT / "faithdiff_tpu").rglob("*.py")}
+    ours = {p.relative_to(ROOT / "faithdiff_tpu_torch")
+            for p in (ROOT / "faithdiff_tpu_torch").rglob("*.py")}
+    assert sorted(map(str, jax_modules - ours)) == []
 
 
 def test_eval_port_is_complete_and_imports_pyiqa_only_where_used():

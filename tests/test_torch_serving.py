@@ -32,7 +32,7 @@ from faithdiff_tpu_torch.serving import controller as ctl
 from faithdiff_tpu_torch.serving import web_demo
 from faithdiff_tpu_torch.serving import worker as wk
 from faithdiff_tpu_torch.serving.external_worker import make_external_worker
-from faithdiff_tpu_torch.utils.png import JPEG_INPUT, decode_png, encode_png
+from faithdiff_tpu_torch.utils.png import decode_png, encode_png
 from test_torch_cli import ckpt, one_intra_op_thread  # noqa: F401  (fixtures)
 
 MODEL = "faithdiff-captioner"
@@ -245,14 +245,14 @@ def test_chat_cli_carries_history(monkeypatch, tmp_path):
     assert "hello" in agent.calls[1][1] and agent.calls[1][1].endswith("more")
     assert agent.calls[0][0] == (8, 8, 3)
     (tmp_path / "y.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1\.1"):
+    with pytest.raises(ValueError, match=r"y\.jpg: truncated JPEG"):
         chat.main(["--captioner_dir", "fake", "--image", str(tmp_path / "y.jpg")])
 
 
 def test_worker_main_captions_uploads_through_the_controller(monkeypatch):
     """`worker.main` with the JAX worker's flags (`--load_4bit`) over a stub
     captioner: registers, and a base64 PNG through the controller is
-    decoded by `decode_png` and captioned with the request's prompt."""
+    decoded by `decode_image` and captioned with the request's prompt."""
     agent = StubAgent()
     seen = {}
 
@@ -334,9 +334,10 @@ def test_web_demo_restore_matches_jax_demo(ckpt, monkeypatch):  # noqa: F811
 
 
 def test_web_demo_serves_the_page_and_refuses_jpeg():
-    """`GET /` is the JAX demo's page; a JPEG upload is answered with an
-    error naming `JPEG_INPUT` over HTTP, and an unknown route with an
-    error, as the JAX demo answers it."""
+    """`GET /` is the JAX demo's page; a truncated JPEG upload is answered
+    with an error naming the upload over HTTP, a whole one is decoded as
+    Pillow decodes it, and an unknown route is answered with an error, as
+    the JAX demo answers it."""
     calls = []
     app = web_demo.DemoApp(lambda img, caption, **o: calls.append(img) or img)
     port = _free_port()
@@ -347,7 +348,7 @@ def test_web_demo_serves_the_page_and_refuses_jpeg():
             assert r.read() == jax_demo._PAGE.encode()
         jpeg = base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(16)).decode()
         out = json.loads(_post(addr, "/restore", {"image": jpeg}))
-        assert out == {"error": out["error"]} and JPEG_INPUT in out["error"]
+        assert out == {"error": "the uploaded image: truncated JPEG segment"}
         assert json.loads(_post(addr, "/caption", {"image": jpeg})) == {
             "error": "no captioner loaded"}
         assert json.loads(_post(addr, "/nope", {})) == {"error": "unknown route"}
@@ -355,5 +356,12 @@ def test_web_demo_serves_the_page_and_refuses_jpeg():
         out = json.loads(_post(addr, "/restore", {"image": _png_b64(img)}))
         assert np.array_equal(decode_png(base64.b64decode(out["image"])), img)
         assert calls and calls[0].shape == (5, 7, 3)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=90)
+        out = json.loads(_post(addr, "/restore", {
+            "image": base64.b64encode(buf.getvalue()).decode()}))
+        want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+        assert np.array_equal(calls[-1], want)
+        assert np.array_equal(decode_png(base64.b64decode(out["image"])), want)
     finally:
         server.shutdown()

@@ -1,8 +1,8 @@
 """The port's training data (`faithdiff_tpu_torch/data/`,
 `utils/resample.py`, `training/text_embeds.py`, the runner's
 `_dataset_batches`) against the JAX package's, which reads through PIL,
-on seeded 8-bit PNG pairs and captions: every array and caption exactly
-equal."""
+on seeded 8-bit PNG pairs and captions, and on JPEG pairs: every array
+and caption exactly equal."""
 import argparse
 import os
 import random
@@ -103,10 +103,24 @@ def test_trim_caption_matches_jax():
 
 
 def test_jpeg_pairs_raise(tmp_path):
-    Image.new("RGB", (8, 8)).save(tmp_path / "a.jpg")
+    """JPEG pairs give the JAX dataset's samples (both decode as Pillow
+    does); only a JPEG the port's decoder does not take raises (CMYK:
+    ROADMAP §1.1)."""
+    rng = np.random.default_rng(5)
+    Image.fromarray(rng.integers(0, 256, (88, 72, 3), dtype=np.uint8)).save(
+        tmp_path / "hr.jpg", quality=90)
+    Image.fromarray(rng.integers(0, 256, (22, 18, 3), dtype=np.uint8)).save(
+        tmp_path / "lr.jpg", quality=80, subsampling=0)
+    hr, lr = [str(tmp_path / "hr.jpg")], [str(tmp_path / "lr.jpg")]
+    jd = jax_ds.LocalPairedDataset(hr, lr, resolution=RES, seed=2)
+    pd = port_ds.LocalPairedDataset(hr, lr, resolution=RES, seed=2)
+    for draw in range(4):
+        _assert_sample_equal(jd.__getitem__(0, rng=random.Random(draw)),
+                             pd.__getitem__(0, rng=random.Random(draw)))
+    Image.new("CMYK", (8, 8)).save(tmp_path / "a.jpg")
     ds = port_ds.LocalPairedDataset([str(tmp_path / "a.jpg")],
                                     [str(tmp_path / "a.jpg")], resolution=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.1"):
+    with pytest.raises(ValueError, match="ROADMAP §1.1"):
         ds[0]
 
 
