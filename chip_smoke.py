@@ -224,7 +224,12 @@
    it picked) and the bound; the bf16 kernel at [1,1,16384,512] beside
    `chunked_attention` (where the gate keeps that shape); every wide head
    dim at ragged, causal and packed column-slice shapes (bf16 within 1e-2
-   + 8e-3*|ref|, fp32 within 2e-5 * max|ref|, TF32 off). `jpeg_decode`:
+   + 8e-3*|ref|, fp32 within 2e-5 * max|ref|, TF32 off), the bf16 kernel
+   there at one split, two and its plan's count (`wide_plan`); each bf16
+   row with its plan (`splits`, `blocks`) and whether two calls give the
+   same bits (`same_bits`, part of `ok`); `attention_wide_merge`: the
+   split merge kernel alone at the VAE's shape against its plain version
+   on the same partials, timed. `jpeg_decode`:
    every fixture of `tests/data/jpeg/` through the port's decoder (the
    host library built here by the host compiler), each RGB SHA-256 the
    manifest's Pillow hash; ms a megapixel of the 1024x1536 baseline and
@@ -233,8 +238,9 @@
    1e-5 of `merge_tiles` on the card. `cli_restore_jpeg` (after
    `cli_restore`): the 128 x 128 JPEG fixture through `cli.py restore`: a
    256 x 256 PNG, exactly 3 launches of the d = 512 bf16 kernel (denoise
-   encoder, VAE encode, VAE decode) and no other attention kernel, the
-   same bytes as the CLI's restore of the same pixels as a PNG.
+   encoder, VAE encode, VAE decode) and of its split merge, and no other
+   attention kernel, the same bytes as the CLI's restore of the same
+   pixels as a PNG.
    `train_fp32_wide` (after `train_fp32`): `train --dtype float32` at 256
    px, one micro-step: 2 launches of the fp32 kernel at d = 512 (VAE
    encode, denoise encoder), a finite loss.
@@ -242,7 +248,8 @@
    its launches per training micro-step of both stages, and on the fp8
    and Karras restores, the VQA phase, a caption training step and the
    fp32 micro-steps; the wide kernels with their launches on
-   `cli_restore_jpeg` and `train_fp32_wide` and their packed row), then a
+   `cli_restore_jpeg` and `train_fp32_wide` and their packed row, the bf16
+   one's split merge with its launches there), then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
 
@@ -697,6 +704,7 @@ def check_attention_wide(torch):
     head dim at ragged lengths, causal, and on packed column slices."""
     import torch.nn.functional as F
 
+    from faithdiff_tpu_torch.ops import attention as A
     from faithdiff_tpu_torch.ops.attention import (attention_reference,
                                                    chunked_attention, einsum_bsnd,
                                                    flash_attention,
@@ -722,6 +730,15 @@ def check_attention_wide(torch):
         rows.append(row)
         return row
 
+    def repeat(row, kernel, shape):
+        """The bf16 kernel's split plan at `shape` (b, h, q_len, kv_len, d,
+        causal) on the row, and whether two calls give the same bits (part
+        of `ok`)."""
+        plan = A.wide_plan(*shape, sms=A._sm_count(torch.device("cuda")))
+        same = bool(torch.equal(kernel(), kernel()))
+        row.update(splits=plan.splits, blocks=plan.blocks, same_bits=same,
+                   ok=row["ok"] and same)
+
     with tf32_off(torch):
         for dtype, peak, esize in ((torch.bfloat16, PEAK_BF16_FLOPS, 2),
                                    (torch.float32, PEAK_FP32_FLOPS, 4)):
@@ -739,6 +756,8 @@ def check_attention_wide(torch):
                     torch, 4 * b * h * d * s * s, 4 * b * h * s * d * esize, kernel,
                     lambda: attention_reference(q, k, v, scale, causal), library,
                     peak=peak), sdpa_backend=sdpa_backend(torch, library))
+                if dtype == torch.bfloat16:
+                    repeat(row, kernel, (b, h, s, s, d, causal))
                 print("attention_wide", json.dumps(row), flush=True)
                 del q, k, v
             for shape, heads in WIDE_PACKED:
@@ -756,6 +775,8 @@ def check_attention_wide(torch):
                     torch, 4 * b * heads * d * s * s, 4 * b * s * f * esize, kernel,
                     lambda: einsum_bsnd(q, k, v, heads, scale), library, peak=peak),
                     sdpa_backend=sdpa_backend(torch, library))
+                if dtype == torch.bfloat16:
+                    repeat(row, kernel, (b, heads, s, s, d, False))
                 print("attention_wide_packed", json.dumps(row), flush=True)
                 del q, k, v, views
         # the 1024 px tile's VAE attention: the kernel beside the path's
@@ -771,33 +792,104 @@ def check_attention_wide(torch):
         row.update(flash_timing(torch, 4 * b * h * d * s * s, 4 * b * h * s * d * 2,
                                 kernel, lambda: chunked_attention(q, k, v, scale),
                                 library), sdpa_backend=sdpa_backend(torch, library))
+        repeat(row, kernel, (b, h, s, s, d, False))
         print("attention_wide_long", json.dumps(row), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
         # every instance, both dtypes: ragged non-causal, causal with a
         # partial last tile, and packed column slices of fused projections
+        # (the bf16 kernel at one split, at two and at its plan's count,
+        # each twice: the same bits)
+        planned = A.wide_plan
         for dtype in (torch.bfloat16, torch.float32):
             for d in WIDE_DIMS:
                 scale = d ** -0.5
+                splits = (1, 2, None) if dtype == torch.bfloat16 else (None,)
                 for (b, h, sq, skv), causal in (((2, 2, 1000, 1100), False),
                                                 ((1, 2, 1030, 1030), True)):
                     q = randn((b, h, sq, d), dtype)
                     k, v = randn((b, h, skv, d), dtype), randn((b, h, skv, d), dtype)
-                    row = hold(flash_attention(q, k, v, scale, causal),
-                               attention_reference(q, k, v, scale, causal), dtype,
-                               case=f"bhsd {[b, h, sq, skv, d]} causal={causal}")
-                    print("attention_wide_ragged", json.dumps(row), flush=True)
+                    ref = attention_reference(q, k, v, scale, causal)
+                    for n in splits:
+                        A.wide_plan = functools.partial(planned, splits=n)
+                        try:
+                            out = flash_attention(q, k, v, scale, causal)
+                            same = bool(torch.equal(out, flash_attention(q, k, v, scale,
+                                                                         causal)))
+                            plan = A.wide_plan(b, h, sq, skv, d, causal)
+                        finally:
+                            A.wide_plan = planned
+                        row = hold(out, ref, dtype,
+                                   case=f"bhsd {[b, h, sq, skv, d]} causal={causal}")
+                        if dtype == torch.bfloat16:
+                            row.update(splits=plan.splits, same_bits=same,
+                                       ok=row["ok"] and same)
+                        print("attention_wide_ragged", json.dumps(row), flush=True)
                 heads, f = 2, 2 * d
                 q = randn((2, 1030, 3 * f), dtype)[..., f:2 * f]
                 k, v = randn((2, 1100, 2 * f), dtype).split(f, dim=-1)
-                row = hold(flash_attention_packed(q, k, v, heads, scale),
-                           einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                       heads, scale), dtype,
-                           case=f"packed column slices {[2, 1030, 1100, f]} heads={heads}")
-                print("attention_wide_ragged", json.dumps(row), flush=True)
+                ref = einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(), heads,
+                                  scale)
+                for n in splits:
+                    A.wide_plan = functools.partial(planned, splits=n)
+                    try:
+                        out = flash_attention_packed(q, k, v, heads, scale)
+                        same = bool(torch.equal(out, flash_attention_packed(
+                            q, k, v, heads, scale)))
+                        plan = A.wide_plan(2, heads, 1030, 1100, d)
+                    finally:
+                        A.wide_plan = planned
+                    row = hold(out, ref, dtype, case=f"packed column slices "
+                               f"{[2, 1030, 1100, f]} heads={heads}")
+                    if dtype == torch.bfloat16:
+                        row.update(splits=plan.splits, same_bits=same,
+                                   ok=row["ok"] and same)
+                    print("attention_wide_ragged", json.dumps(row), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
     return rows
+
+
+def check_wide_merge(torch) -> dict:
+    """The bf16 wide kernel's split merge (`flash_wide_merge_kernel`) alone at
+    the VAE's shape (WIDE_SHAPES[0]) under its plan: the partials from the
+    kernel's own split launch, merged by the merge kernel and by its plain
+    version (`merge_wide_partials`) on the same partials, within one bf16
+    rounding (4e-3 * |ref| + 1e-5); the merge timed from CUDA graphs. Its
+    bound counts only what must cross HBM, bf16 o written once: the split
+    kernel writes the fp32 partials (16.8 MB here) just before, and they
+    are read back from the 50 MB L2, and no L2 rate enters the bound; its
+    operations are one fp32 FMA a partial element, at the CUDA-core rate."""
+    from faithdiff_tpu_torch.ops import attention as A
+    from faithdiff_tpu_torch.utils.profiling import time_ms
+
+    b, h, s, d = WIDE_SHAPES[0][0]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    out = torch.empty_like(q)
+    strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+    plan = A.wide_plan(b, h, s, s, d, sms=A._sm_count(q.device))
+    part_o, part_ml = A._wide_fwd_launch(q, k, v, out, strides, (b, h, s, s, d),
+                                         d ** -0.5, False, plan)
+    merge = lambda: A._wide_merge_launch(part_o, part_ml, out, strides[9:12], h, s)  # noqa: E731
+    plain = lambda: A.merge_wide_partials(part_o, part_ml)[:, :s]  # noqa: E731
+    merge()
+    torch.cuda.synchronize()
+    ref = plain().reshape(out.shape)
+    err = (out.float() - ref).abs()
+    b_ms, b_by = bound(2 * part_o[:, :, :s].numel(), out.numel() * 2, PEAK_FP32_FLOPS)
+    ms = graph_ms(torch, merge)
+    row = dict(check="wide_merge", shape=[b, h, s, d], splits=plan.splits,
+               max_abs_err=float(err.max()), tol="4e-3*|ref| + 1e-5",
+               ok=bool((err <= 4e-3 * ref.abs() + 1e-5).all()), ms=ms,
+               plain_ms=time_ms(plain, 3, 1), library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, ms_over_bound=ms / b_ms,
+               partial_bytes=part_o.numel() * 4 + part_ml.numel() * 4)
+    print("attention_wide_merge", json.dumps(row), flush=True)
+    del q, k, v, out, part_o, part_ml
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_attention_ragged(torch):
@@ -1086,7 +1178,7 @@ class PathWatch:
     events around each UNet call, each call's batch, the first and the
     last call's (args, kwargs), the (model, shape, itemsize, groups,
     aligned) of every GroupNorm call, from which the launch plan predicts
-    the GroupNorm kernels' launches, and the (tokens, channels) of every
+    the GroupNorm kernels' launches, and the (batch, tokens, channels) of every
     VAE mid-attention call (VAE and denoise encoder), from which the flash
     gate predicts the d = 512 kernel's."""
 
@@ -1124,8 +1216,8 @@ class PathWatch:
                        if isinstance(m, GroupNorm)]
 
         def attention_hook(module, args):
-            _, c, h, w = args[0].shape
-            self.vae_attention.append((h * w, c))
+            b, c, h, w = args[0].shape
+            self.vae_attention.append((b, h * w, c))
 
         self.hooks += [m.register_forward_pre_hook(attention_hook)
                        for name in ("vae", "denoise_encoder")
@@ -1142,7 +1234,18 @@ class PathWatch:
         latent or tile; the gate is JAX's there, tests/test_torch_flash_wide)."""
         from faithdiff_tpu_torch.ops.attention import _flash_gate
 
-        return sum(_flash_gate(n, n, c) for n, c in self.vae_attention)
+        return sum(_flash_gate(n, n, c) for _, n, c in self.vae_attention)
+
+    def wide_merges(self) -> int:
+        """Launches of the bf16 wide kernel's merge: those d = 512 launches
+        whose shape `wide_plan` splits."""
+        import torch
+
+        from faithdiff_tpu_torch.ops.attention import _flash_gate, _sm_count, wide_plan
+
+        sms = _sm_count(torch.device("cuda"))
+        return sum(_flash_gate(n, n, c) and wide_plan(b, 1, n, n, c, sms=sms).splits > 1
+                   for b, n, c in self.vae_attention)
 
     def unet_ms(self):
         return [a.elapsed_time(b) for a, b in zip(self.events[::2], self.events[1::2])]
@@ -1158,6 +1261,8 @@ class PathWatch:
         expected = {flash: calls * attn_unet}
         if self.wide_launches():
             expected["flash_attention_wide_fwd"] = self.wide_launches()
+        if self.wide_merges():
+            expected["flash_attention_wide_merge"] = self.wide_merges()
         unet_routes = []
         for model, shape, itemsize, groups, aligned in self.gn_seen:
             plan = plan_group_norm(shape, itemsize, groups, aligned)
@@ -4602,8 +4707,9 @@ def run_native(torch) -> dict:
 def run_cli_restore_jpeg(torch, root: str, ckpt: str) -> dict:
     """`cli_restore_jpeg`: JPEG_RESTORE through `cli.py restore` (default
     flags, `cli_restore`'s converted weights): a 256 x 256 PNG, the
-    d = 512 bf16 kernel launched WIDE_PER_RESTORE times and no other
-    attention kernel (the UNet's attentions are under 1024 tokens there),
+    d = 512 bf16 kernel launched WIDE_PER_RESTORE times, its merge as
+    often as `wide_plan` splits the shape, and no other attention kernel
+    (the UNet's attentions are under 1024 tokens there),
     the GroupNorm kernels as planned; then the same pixels written as a
     PNG through the CLI again, whose PNG must be the JPEG's, byte for
     byte."""
@@ -4632,8 +4738,10 @@ def run_cli_restore_jpeg(torch, root: str, ckpt: str) -> dict:
     seen.pop("pipe", None)
     if seen["watch"].wide_launches() != WIDE_PER_RESTORE:
         fail(f"cli_restore_jpeg: {seen['watch'].vae_attention} VAE attention calls "
-             f"(tokens, channels), {WIDE_PER_RESTORE} at 1024 tokens expected")
+             f"(batch, tokens, channels), {WIDE_PER_RESTORE} at 1024 tokens expected")
     expected = collections.Counter({"flash_attention_wide_fwd": WIDE_PER_RESTORE})
+    if seen["watch"].wide_merges():
+        expected["flash_attention_wide_merge"] = seen["watch"].wide_merges()
     for _, shape, itemsize, groups, aligned in seen["watch"].gn_seen:
         expected.update(plan_group_norm(shape, itemsize, groups, aligned).counters)
     if counts != dict(expected):
@@ -4943,6 +5051,7 @@ def main() -> int:
         f32 = check_attention_f32(torch)
     with phase("attention_wide_d"):
         wide = check_attention_wide(torch)
+        wide.append(check_wide_merge(torch))
     bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_ + f32
            + wide if not r["ok"]]
     if bad:
@@ -5140,6 +5249,8 @@ def main() -> int:
                         "train_fp32_micro_steps": [
                             st.get(name, 0) for st in fp32["launches_per_micro_step"]]})
 
+    merge_row = next(r for r in wide if r.get("check") == "wide_merge")
+
     def wide_entry(name, packed_name, dtype, source, launches):
         """A wide head-dim kernel: its row at the VAE's [1, 1, 1024, 512],
         its launches on the path that runs it (`cli_restore_jpeg` in bf16,
@@ -5190,6 +5301,14 @@ def main() -> int:
         wide_entry("flash_attention_wide_fwd", "flash_attention_wide_bsnd_fwd",
                    "bfloat16", "faithdiff_tpu_torch/csrc/flash_attention_wide.cu",
                    jpeg_row["launches"]),
+        dict(name="flash_attention_wide_merge", route="cuda",
+             source="faithdiff_tpu_torch/csrc/flash_attention_wide.cu",
+             replaces=("faithdiff_tpu/ops/attention.py:45 at d = 192 ... 512 (the K/V "
+                       "loop's carried softmax state, across split blocks)"),
+             launches=jpeg_row["launches"].get("flash_attention_wide_merge", 0),
+             **{k: merge_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "ms_over_bound", "library_ms",
+                                          "shape", "splits")}),
         wide_entry("flash_attention_f32_wide_fwd", "flash_attention_f32_wide_bsnd_fwd",
                    "float32", "faithdiff_tpu_torch/csrc/flash_attention_f32.cu",
                    fp32_wide["launches"]),

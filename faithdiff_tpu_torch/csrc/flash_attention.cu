@@ -47,8 +47,10 @@
 
 namespace {
 
+using fd_flash::Geometry;
 using fd_flash::kBlockQ;
 using fd_flash::kThreads;
+using fd_flash::make_map;
 
 // K/V rows a tile of the production kernels (the variants choose their own);
 // ops/attention.py::BLOCK_K says the same, and make_map refuses a launch
@@ -87,34 +89,6 @@ using LayoutFor = fd_flash::Layout<kHeadDim, kBlockKV, kStagesFor<kHeadDim, kBlo
 FD_FLASH_KERNEL(flash_fwd_kernel)        // contiguous [BH, S, d] rows
 FD_FLASH_KERNEL(flash_bsnd_fwd_kernel)   // packed [b, s, n*d] rows
 #undef FD_FLASH_KERNEL
-
-// One operand as the wrapper describes it: dims (column in head, head, row,
-// batch), the byte strides of the last three, and the box of one TMA tile.
-struct Geometry {
-  uint64_t dims[4];
-  uint64_t strides[3];
-  uint64_t box[4];
-};
-
-// A bf16 tensor map with the 128-byte swizzle; rows past an extent read as
-// zeros and are not written.
-cudaError_t make_map(CUtensorMap* map, const void* base, const Geometry& g,
-                     int box_rows) {
-  const fd_hopper::EncodeTiled encode = fd_hopper::encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  if (g.box[0] != fd_flash::kPanelCols || g.box[1] != 1
-      || g.box[2] != static_cast<uint64_t>(box_rows) || g.box[3] != 1)
-    return cudaErrorInvalidValue;
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(g.box[0]), 1,
-                             static_cast<cuuint32_t>(g.box[2]), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), g.dims,
-      g.strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 // Streaming multiprocessors of the current device.
 cudaError_t sm_count(int device, int* count) {

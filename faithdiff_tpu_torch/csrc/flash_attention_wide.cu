@@ -1,6 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in and out, at the wide
-// head dims d = 192 ... 512 (multiples of 64), any layout with unit column
-// stride.
+// head dims d = 192 ... 512 (multiples of 64), in both layouts the tensor
+// maps describe: contiguous [B, H, S, d] planes and packed [b, s, n*d] rows
+// (column slices of a fused projection included).
 //
 // Replaces the wide-d instantiations of:
 // - faithdiff_tpu/ops/attention.py::_flash_kernel (launched by
@@ -9,326 +10,574 @@
 //   attention at a 32 x 32 latent ([B, 1, 1024, 512]), run by the denoise
 //   encoder, the VAE encode and the VAE decode of a 256 x 256 restore;
 // - faithdiff_tpu/ops/attention.py::_flash_kernel_bsnd (launched by
-//   _flash_attention_bsnd_impl) at those head dims: packed [b, s, n*d] rows,
-//   non-causal (its gate has no K/V cap).
-// One kernel serves both layouts: the wrapper (ops/attention.py) passes each
-// operand's element strides of batch, head and row, so a head of a packed
-// row is `d` elements into it and a contiguous plane is a head.
+//   _flash_attention_bsnd_impl) at those head dims, non-causal.
 //
 // What it computes: o = softmax(q k^T * scale) v. Scores are fp32 products
 // of the bf16 operands, scaled by scale * log2 e in fp32; an online softmax
-// in base 2 over K/V tiles (m, l and the accumulator in registers, the
-// accumulator rescaled by alpha = 2^(m_old - m_new)); p rounded to bf16
-// before p.v, as the plain version rounds its probabilities to v's dtype;
-// fp32 accumulation; o = acc / l. Columns past kv_len and, under `causal`,
-// above the diagonal (top-left: col > row) score -0.7 * FLT_MAX, the TPU
-// kernel's DEFAULT_MASK_VALUE.
+// in base 2 over K/V tiles; p rounded to bf16 before p.v while its fp32
+// value enters the sum; fp32 accumulation; o = acc / l. Columns past kv_len
+// and, under `causal`, above the diagonal (top-left: col > row) score
+// -0.7 * FLT_MAX, the TPU kernel's DEFAULT_MASK_VALUE.
 //
 // What bounds it on the card: operations (4 * BH * S^2 * d flops against
-// 8 * BH * S * d bytes: ~2,000 flops a byte at S = 1024, d = 512).
+// 8 * BH * S * d bytes: ~2,000 flops a byte at S = 1024, d = 512), and at
+// d > 256, where a block holds only 64 q rows, the K/V stream from L2
+// (128 KB of K and V per 64-key tile for 8.4 Mflop at d = 512).
 //
-// Why this shape. The d = 64 / 128 kernels (flash_attention.cu) keep a
-// 64-row fp32 accumulator of all d columns in a warpgroup's registers; at
-// d = 512 that is 256 registers a thread before any score, past the 255
-// limit, and Q, K and V tiles of 64 rows would take 192 KB of shared memory.
-// So a block owns 64 q rows and one SLICE of kSlice output columns (128, or
-// 64 where d is no multiple of 128), and the grid has d / kSlice blocks per
-// q block, each recomputing the scores over the full d: at d = 512 the
-// q.k^T work is done four times, 2.5x the operations of one pass, for an
-// accumulator of 64 registers a thread. The products are `mma.sync`
-// m16n8k16 (bf16 in, fp32 out): four warps, 16 q rows each; a warp's scores
-// for a 64-key tile are 8 fragments (32 registers), and the score fragments
-// are re-packed in registers as the A operand of p.v (the accumulator layout
-// of m16n8 equals the A layout of m16k16 in halves). Q and the K tile sit in
-// shared memory with rows padded by 8 bf16 (16 bytes), so the 32-bit
-// fragment loads of 8 rows x 4 columns hit 32 different banks; the V slice
-// is stored transposed (key fastest) so that its B fragments are 32-bit
-// loads too. Loads are plain 16-byte vector loads; the tiles are not
-// double buffered. This is the simple first design: wgmma, TMA and a
-// K/V ring at these widths are later work.
+// The design, against the four limits of the first one (`mma.sync`, a
+// 128-column output slice a block):
+// 1. Scores once a block. A block is two consumer warpgroups and a
+//    producer warpgroup. At d <= 256 it owns 128 q rows, 64 a consumer
+//    warpgroup, each holding all d columns of its fp32 accumulator (d = 256:
+//    128 registers a thread), as flash_tile.cuh's d = 64 / 128 blocks do.
+//    At d > 256 the accumulator of 64 rows no longer fits one warpgroup, so
+//    both share one 64-row q block and split the 64-column panels of d
+//    between them (d = 320: 3 + 2; 448: 4 + 3; 512: 4 + 4). Each computes
+//    q.k^T over its own panels only, the two fp32 64 x 64 halves meet in
+//    shared memory (16 KB each), and both add them in the same order and
+//    run the same softmax; each then multiplies P by its panels of V. The
+//    scores are computed once, by halves, for all d output columns.
+// 2. Short grids split K/V. `ops/attention.py::wide_plan` picks, from the
+//    shape alone, how many blocks share a q block's K/V tiles (`splits`,
+//    `tiles_per_split` each): as many as one wave of one block an SM holds,
+//    while each split walks at least 2 tiles (one costs more in fixed
+//    block time and merge traffic than it wins: PERF.md). [1, 1, 1024,
+//    512] has 16 q blocks and runs 8 splits of 2 tiles. A split writes its
+//    unnormalised fp32 partial output and its rows' max and sum to buffers
+//    the wrapper allocates; flash_wide_merge_kernel then combines the
+//    splits in split order. No atomics: a repeat gives the same bits.
+// 3. Asynchronous copies. Q, K and V arrive by TMA tensor maps (128-byte
+//    swizzle, 64-column panels) on mbarriers that count bytes: one producer
+//    thread fills the K ring, another the V ring, so a tile's K loads while
+//    the previous one's softmax and p.v run (K and V rings have their own
+//    depth: as many 64-key stages as shared memory holds, from 1 + 1 at
+//    d >= 448 to 3 + 3 at d = 192). V is read MN-major by the wgmma
+//    descriptor: nothing is transposed.
+// 4. wgmma for both products: q.k^T as SS m64n64k16 steps over the panels
+//    a warpgroup owns, P.V as RS m64nNk16 with P in registers and N the
+//    warpgroup's columns (128 ... 256). A warpgroup issues tile t's q.k^T
+//    before tile t-1's P.V and runs tile t's exchange and softmax while that
+//    P.V is on the tensor cores (flash_tile.cuh's order). The producer
+//    warpgroup hands its registers to the consumers (setmaxnreg).
 //
-// Shared memory a block: (64 + 64) * (d + 8) * 2 + kSlice * 72 * 2 bytes:
-// d = 512: 151,552 (one block an SM); d = 256: 84,992; d = 192: 60,416.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// Shared memory a block (WideLayout): Q, then at d > 256 the two score
+// halves, then the K and V rings, then the mbarriers, from a 1024-byte
+// aligned base: d = 192: 197,736 bytes; 256: 230,488; 320: 197,688; 384:
+// 230,456; 448: 205,864; 512: 230,440 (one block an SM).
+#include "flash_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace fd_hopper;
+using fd_flash::bf16;
+using fd_flash::Geometry;
+using fd_flash::kMask;
+using fd_flash::kPanelCols;
+using fd_flash::kPanelRowBytes;
+using fd_flash::make_map;
+using fd_flash::pack_bf16;
+using fd_flash::RingPos;
+using fd_flash::SoftmaxRows;
 
-constexpr int kBlockQ = 64;      // q rows a block (16 a warp)
-constexpr int kBlockK = 64;      // K/V rows a tile
-constexpr int kThreads = 128;    // four warps
-constexpr int kPad = 8;          // bf16 of padding a shared-memory row
-constexpr float kMaskValue = -0.7f * 3.402823466e38f;
+constexpr int kRows = 64;             // K/V rows a tile, q rows a warpgroup, TMA box rows
+constexpr int kPanelBytes = kRows * kPanelRowBytes;    // one 64 x 64 panel: 8 KB
+constexpr int kThreads = 384;         // two consumer warpgroups and the producer's
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;    // 2 * 128 * 232 + 128 * 40 <= 65,536
+constexpr int kSmemLimit = 232448;    // a block's shared memory on Hopper
 
-// Element strides of one operand: batch, head, row (columns are unit).
-struct Strides {
-  long long batch, head, row;
+template <int kHeadDim>
+struct WideLayout {
+  static constexpr int kPanels = kHeadDim / kPanelCols;
+  // above d = 256 the warpgroups split the panels of one 64-row q block
+  static constexpr bool kSplitCols = kHeadDim > 256;
+  static constexpr int kRowGroups = kSplitCols ? 1 : 2;
+  static constexpr int kBlockQ = kRowGroups * kRows;
+  // panels (output columns, and at kSplitCols the share of q.k^T's
+  // reduction) of warpgroup 0 and of warpgroup 1
+  static constexpr int kPanels0 = kSplitCols ? (kPanels + 1) / 2 : kPanels;
+  static constexpr int kPanels1 = kSplitCols ? kPanels - kPanels0 : kPanels;
+  static constexpr int kQBytes = kRowGroups * kPanels * kPanelBytes;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;
+  // the two warpgroups' fp32 score halves of a 64 x 64 tile
+  static constexpr int kXBytes = kSplitCols ? 2 * kRows * kRows * 4 : 0;
+  // stages: all the tiles that fit beside Q and the score halves (leaving
+  // the alignment slack and 16 barriers), K first, at most 3 each
+  static constexpr int kTiles =
+      (kSmemLimit - 1024 - 8 * 16 - kQBytes - kXBytes) / kTileBytes;
+  static constexpr int kKStages = (kTiles + 1) / 2 < 3 ? (kTiles + 1) / 2 : 3;
+  static constexpr int kVStages = kTiles - kKStages < 3 ? kTiles - kKStages : 3;
+  static constexpr int kXOff = kQBytes;
+  static constexpr int kKOff = kXOff + kXBytes;
+  static constexpr int kVOff = kKOff + kKStages * kTileBytes;
+  static constexpr int kBarOff = kVOff + kVStages * kTileBytes;
+  // + 1024: the dynamic shared memory base is only known to be 16-byte aligned
+  static constexpr size_t kSmemBytes =
+      kBarOff + 8 * (1 + 2 * kKStages + 2 * kVStages) + 1024;
+  static_assert(kVStages >= 1 && kSmemBytes <= kSmemLimit, "shared memory");
 };
 
-// output columns a block owns at head dim d
-template <int kHeadDim>
-constexpr int kSliceFor = kHeadDim % 128 == 0 ? 128 : 64;
+// What one block does: a q block of one plane, over K/V tiles [t0, t1).
+struct Work {
+  int head, batch, plane, q0, split, t0, t1;
+};
 
-template <int kHeadDim>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * ((kBlockQ + kBlockK) * (kHeadDim + kPad)
-                         + kSliceFor<kHeadDim> * (kBlockK + kPad));
+// s = Q.K^T over the kGP panels at q_panels / k_panels (64 x 64, fp32),
+// issued and committed as one wgmma group
+template <int kGP>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_panels,
+                                         uint32_t k_panels) {
+  fence_registers(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kGP * 4; ++kk) {
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;   // 16 bf16 a step
+    wgmma_ss_n64(s, smem_desc(q_panels + off, 16, 1024),
+                 smem_desc(k_panels + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+template <int kGP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[kGP * 32], const uint32_t* p,
+                                         uint64_t desc_v) {
+  static_assert(kGP >= 2 && kGP <= 4, "a warpgroup's panels");
+  if constexpr (kGP == 2) wgmma_rs_n128(o, p[0], p[1], p[2], p[3], desc_v);
+  else if constexpr (kGP == 3) wgmma_rs_n192(o, p[0], p[1], p[2], p[3], desc_v);
+  else wgmma_rs_n256(o, p[0], p[1], p[2], p[3], desc_v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// o += P.V over the kGP panels of the V tile at v_panels, one wgmma group
+template <int kGP>
+__device__ __forceinline__ void issue_pv(float (&o)[kGP * 32], uint32_t (&p)[16],
+                                         uint32_t v_panels) {
+  fence_registers(o);
+  fence_registers(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<kGP>(o, p + 4 * kk,
+                  smem_desc(v_panels + kk * 16 * kPanelRowBytes, kPanelBytes, 1024));
+  wgmma_commit();
 }
 
-// d += a . b for one m16n8k16 tile: a the 16 x 16 row-major A fragment,
-// (b0, b1) the 16 x 8 column-major B fragment, d the 16 x 8 fp32 fragment.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void st_shared(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 
-template <int kHeadDim, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_wide_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      Strides sq, Strides sk, Strides sv, Strides so,
-                      int q_len, int kv_len, float scale_log2) {
-  constexpr int kSlice = kSliceFor<kHeadDim>;
-  constexpr int kSlices = kHeadDim / kSlice;
-  constexpr int kLd = kHeadDim + kPad;        // Q and K rows
-  constexpr int kLdV = kBlockK + kPad;        // V^T rows (one a column)
-  constexpr int kChunks = kHeadDim / 8;       // 16-byte pieces of a row
-  constexpr int kSliceChunks = kSlice / 8;
-  constexpr int kOutTiles = kSlice / 8;       // n8 tiles of the accumulator
-  constexpr int kKeyTiles = kBlockK / 8;      // n8 tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kBlockQ][kLd]
-  bf16* ks = qs + kBlockQ * kLd;                  // [kBlockK][kLd]
-  bf16* vt = ks + kBlockK * kLd;                  // [kSlice][kLdV]
+__device__ __forceinline__ float ld_shared(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
 
-  const int q0 = (blockIdx.x / kSlices) * kBlockQ;
-  const int c0 = (blockIdx.x % kSlices) * kSlice;
-  const long long head = blockIdx.y, batch = blockIdx.z;
-  const bf16* qb = q + batch * sq.batch + head * sq.head;
-  const bf16* kb = k + batch * sk.batch + head * sk.head;
-  const bf16* vb = v + batch * sv.batch + head * sv.head + c0;
-  bf16* ob = o + batch * so.batch + head * so.head + c0;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;       // fragment row group, column pair
-  const int row_lo = q0 + warp * 16 + g, row_hi = row_lo + 8;
+// Scores of the tile at k0 in, unnormalised probabilities out. At d > 256
+// the warpgroup's half of the scores goes to shared memory at `x_mine`
+// (element i of a thread at i * 512 bytes from it, the other warpgroup's
+// 16 KB away), the other half is added (S0 + S1 in both warpgroups: the
+// same bits), and both run the same softmax. Barrier 3: both halves
+// written; 4: both read. Addresses stay 32-bit: beside a d = 512
+// accumulator every register counts.
+template <typename L, bool kCausal>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], SoftmaxRows& rows,
+                                             int k0, int kv_len, int group_q0,
+                                             float scale_log2, int group,
+                                             uint32_t x_mine, float& alpha0,
+                                             float& alpha1) {
+  if constexpr (L::kSplitCols) {
+    const uint32_t x_theirs = group == 0 ? x_mine + 128 * 32 * 4 : x_mine - 128 * 32 * 4;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st_shared(x_mine + i * 512, s[i]);
+    named_barrier_sync(3, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] += ld_shared(x_theirs + i * 512);
+    named_barrier_sync(4, 256);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+  rows.template update<kRows, true, kCausal>(s, k0, kv_len, group_q0, 1.f, alpha0,
+                                             alpha1);
+}
 
-  // Q rows, zeros past q_len
-  for (int i = tid; i < kBlockQ * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < q_len)
-      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * sq.row + c);
-    *reinterpret_cast<uint4*>(qs + r * kLd + c) = val;
+// One consumer warpgroup: kGP panels from panel `pa`, its q rows from
+// group_q0. Walks the block's tiles [t0, t1) (the live ones, those with a
+// column <= its last row under the causal mask, through the products),
+// then writes bf16 o through a TMA store or, when the K/V range is split,
+// the fp32 partial and the rows' max and sum.
+template <typename L, bool kCausal, int kGP>
+__device__ __forceinline__ void consume(const Work& w, int group, int pa,
+                                        int group_q0, uint32_t s_base,
+                                        unsigned char* smem, const CUtensorMap* map_o,
+                                        float* part_o, float* part_ml, int planes,
+                                        int rows_pad, int kv_len, int partial,
+                                        float scale_log2) {
+  const uint32_t bar_q = s_base + L::kBarOff;
+  const uint32_t k_full = bar_q + 8, k_empty = k_full + 8 * L::kKStages;
+  const uint32_t v_full = k_empty + 8 * L::kKStages, v_empty = v_full + 8 * L::kVStages;
+  const uint32_t q_smem = s_base + (L::kSplitCols ? 0 : group * L::kPanels * kPanelBytes)
+                          + pa * kPanelBytes;
+  const uint32_t k_ring = s_base + L::kKOff + pa * kPanelBytes;
+  const uint32_t v_ring = s_base + L::kVOff + pa * kPanelBytes;
+  const int gtid = threadIdx.x % 128, lane = threadIdx.x % 32, quad = lane % 4;
+  const int row_in_group = (gtid / 32) * 16 + lane / 4;   // and + 8
+  const uint32_t x_mine = s_base + L::kXOff + (group * 32 * 128 + gtid) * 4;
+
+  int te = w.t1;
+  if (kCausal) te = min(te, (group_q0 + kRows + kRows - 1) / kRows);
+  float o[kGP * 32];
+#pragma unroll
+  for (int i = 0; i < kGP * 32; ++i) o[i] = 0.f;
+  SoftmaxRows rows{kMask, kMask, 0.f, 0.f, group_q0 + row_in_group,
+                   group_q0 + row_in_group + 8, quad};
+  RingPos<L::kKStages> kp;
+  RingPos<L::kVStages> vp;
+  float s[32], alpha0, alpha1;
+  uint32_t p[16];
+
+  mbar_wait(bar_q, 0);
+  if (te > w.t0) {
+    mbar_wait(k_full + 8 * kp.stage, kp.phase);
+    issue_qk<kGP>(s, q_smem, k_ring + kp.stage * L::kTileBytes);
+    wgmma_wait<0>();
+    fence_registers(s);
+    if (lane == 0) mbar_arrive(k_empty + 8 * kp.stage);
+    kp = kp.next();
+    softmax_tile<L, kCausal>(s, rows, w.t0 * kRows, kv_len, group_q0, scale_log2,
+                             group, x_mine, alpha0, alpha1);
+    fd_flash::pack_p<kRows>(p, s);
+    for (int t = w.t0 + 1; t < te; ++t) {
+      mbar_wait(k_full + 8 * kp.stage, kp.phase);
+      issue_qk<kGP>(s, q_smem, k_ring + kp.stage * L::kTileBytes);
+      mbar_wait(v_full + 8 * vp.stage, vp.phase);
+      issue_pv<kGP>(o, p, v_ring + vp.stage * L::kTileBytes);
+      wgmma_wait<1>();
+      fence_registers(s);
+      if (lane == 0) mbar_arrive(k_empty + 8 * kp.stage);
+      kp = kp.next();
+      softmax_tile<L, kCausal>(s, rows, t * kRows, kv_len, group_q0, scale_log2,
+                               group, x_mine, alpha0, alpha1);
+      wgmma_wait<0>();
+      fence_registers(o);
+      fence_registers(p);
+      if (lane == 0) mbar_arrive(v_empty + 8 * vp.stage);
+      vp = vp.next();
+      fd_flash::rescale<kGP * kPanelCols>(o, alpha0, alpha1);
+      fd_flash::pack_p<kRows>(p, s);
+    }
+    mbar_wait(v_full + 8 * vp.stage, vp.phase);
+    issue_pv<kGP>(o, p, v_ring + vp.stage * L::kTileBytes);
+    wgmma_wait<0>();
+    fence_registers(o);
+    fence_registers(p);
+    if (lane == 0) mbar_arrive(v_empty + 8 * vp.stage);
+    vp = vp.next();
+  }
+  // the tiles of the block above this group's rows still pass through the rings
+  for (int t = max(te, w.t0); t < w.t1; ++t) {
+    mbar_wait(k_full + 8 * kp.stage, kp.phase);
+    if (lane == 0) mbar_arrive(k_empty + 8 * kp.stage);
+    kp = kp.next();
+    mbar_wait(v_full + 8 * vp.stage, vp.phase);
+    if (lane == 0) mbar_arrive(v_empty + 8 * vp.stage);
+    vp = vp.next();
   }
 
-  float acc[kOutTiles][4];
+  float l0 = rows.l0, l1 = rows.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const int r0 = group_q0 + row_in_group, r1 = r0 + 8;
+  if (partial) {
+    // unnormalised fp32 rows of this split, with their max and sum
+    constexpr int kD = L::kPanels * kPanelCols;
+    const size_t base = (static_cast<size_t>(w.split) * planes + w.plane) * rows_pad;
+    float* po = part_o + base * kD;
 #pragma unroll
-  for (int n = 0; n < kOutTiles; ++n)
+    for (int j = 0; j < kGP * 8; ++j) {
+      const int col = pa * kPanelCols + 8 * j + 2 * quad;
+      *reinterpret_cast<float2*>(po + static_cast<size_t>(r0) * kD + col) =
+          make_float2(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<float2*>(po + static_cast<size_t>(r1) * kD + col) =
+          make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+    if (quad == 0 && (!L::kSplitCols || group == 0)) {
+      float* ml = part_ml + base * 2;
+      *reinterpret_cast<float2*>(ml + 2 * r0) = make_float2(rows.m0, l0);
+      *reinterpret_cast<float2*>(ml + 2 * r1) = make_float2(rows.m1, l1);
+    }
+    return;
+  }
+  // o = acc / l through this group's Q panels (no wgmma reads them any
+  // more) and out as one TMA store a panel, which drops rows past q_len
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  named_barrier_sync(1 + group, 128);
+  unsigned char* o_smem = smem + (q_smem - s_base);
+  const int rr0 = row_in_group, rr1 = row_in_group + 8;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < kGP * 8; ++j) {
+    unsigned char* panel = o_smem + (j / 8) * kPanelBytes + quad * 4;
+    *reinterpret_cast<uint32_t*>(panel + rr0 * kPanelRowBytes
+                                 + (((j % 8) ^ (rr0 % 8)) * 16)) =
+        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(panel + rr1 * kPanelRowBytes
+                                 + (((j % 8) ^ (rr1 % 8)) * 16)) =
+        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  fence_proxy_async_shared();
+  named_barrier_sync(1 + group, 128);
+  if (gtid == 0) {
+    for (int pn = 0; pn < kGP; ++pn)
+      tma_store_4d(map_o, q_smem + pn * kPanelBytes, (pa + pn) * kPanelCols, w.head,
+                   group_q0, w.batch);
+    tma_store_commit_and_wait();
+  }
+}
 
-  int n_tiles = (kv_len + kBlockK - 1) / kBlockK;
+// The grid is one-dimensional: block = (work item) * splits + split, with
+// the work items (a q block of one plane) q block fastest, or under the
+// causal mask longest first. The tensor maps are 4-D (column in head, head,
+// row, batch) with 64 x 64 boxes; plane = batch * heads + head. With
+// `partial` the block writes split partials (rows_pad rows a plane and
+// split) instead of o.
+template <int kHeadDim, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wide_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_o, float* part_o,
+                      float* part_ml, int heads, int q_blocks, int planes,
+                      int kv_len, int splits, int tiles_per_split, int rows_pad,
+                      float scale_log2) {
+  using L = WideLayout<kHeadDim>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t s_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (s_base - smem_u32(smem_raw));
+  const uint32_t bar_q = s_base + L::kBarOff;
+  const uint32_t k_full = bar_q + 8, k_empty = k_full + 8 * L::kKStages;
+  const uint32_t v_full = k_empty + 8 * L::kKStages, v_empty = v_full + 8 * L::kVStages;
+
+  Work w;
+  w.split = blockIdx.x % splits;
+  const int item = blockIdx.x / splits;
+  int q_block;
   if (kCausal) {
-    // tiles holding a column <= the block's last row
-    const int last = (q0 + kBlockQ + kBlockK - 1) / kBlockK;
-    n_tiles = n_tiles < last ? n_tiles : last;
+    q_block = q_blocks - 1 - item / planes;
+    w.plane = item % planes;
+  } else {
+    q_block = item % q_blocks;
+    w.plane = item / q_blocks;
   }
-  const bf16* qw = qs + warp * 16 * kLd;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kBlockK;
-    __syncthreads();   // Q written; the last tile's K and V reads done
-    for (int i = tid; i < kBlockK * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + r < kv_len)
-        val = *reinterpret_cast<const uint4*>(kb + (k0 + r) * sk.row + c);
-      *reinterpret_cast<uint4*>(ks + r * kLd + c) = val;
-    }
-    // the V slice transposed; consecutive threads take consecutive keys
-    for (int i = tid; i < kBlockK * kSliceChunks; i += kThreads) {
-      const int r = i % kBlockK, c = (i / kBlockK) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (k0 + r < kv_len)
-        val = *reinterpret_cast<const uint4*>(vb + (k0 + r) * sv.row + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c + j) * kLdV + r] = e[j];
-    }
-    __syncthreads();
-    // a warp whose rows all lie above the tile's first column skips it
-    if (kCausal && k0 > q0 + warp * 16 + 15) continue;
+  w.head = w.plane % heads;
+  w.batch = w.plane / heads;
+  w.q0 = q_block * L::kBlockQ;
+  int n_tiles = (kv_len + kRows - 1) / kRows;
+  if (kCausal) n_tiles = min(n_tiles, (w.q0 + L::kBlockQ + kRows - 1) / kRows);
+  w.t0 = w.split * tiles_per_split;
+  w.t1 = max(w.t0, min(w.t0 + tiles_per_split, n_tiles));
 
-    float s[kKeyTiles][4];
+  const int tid = threadIdx.x, group = tid / 128;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::kKStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);   // one arrival a consumer warp
+    }
+    for (int s = 0; s < L::kVStages; ++s) {
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (group == 2) {
+    // ---- producer: one thread loads Q and the K ring, another the V ring ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 256) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int g = 0; g < L::kRowGroups; ++g)
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_4d(s_base + (g * L::kPanels + p) * kPanelBytes, &map_q, bar_q,
+                      p * kPanelCols, w.head, w.q0 + g * kRows, w.batch);
+      RingPos<L::kKStages> kp;
+      for (int t = w.t0; t < w.t1; ++t) {
+        mbar_wait(k_empty + 8 * kp.stage, kp.phase ^ 1);   // passes on a fresh ring
+        mbar_expect_tx(k_full + 8 * kp.stage, L::kTileBytes);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_4d(s_base + L::kKOff + kp.stage * L::kTileBytes + p * kPanelBytes,
+                      &map_k, k_full + 8 * kp.stage, p * kPanelCols, w.head, t * kRows,
+                      w.batch);
+        kp = kp.next();
+      }
+    } else if (tid == 288) {
+      RingPos<L::kVStages> vp;
+      for (int t = w.t0; t < w.t1; ++t) {
+        mbar_wait(v_empty + 8 * vp.stage, vp.phase ^ 1);
+        mbar_expect_tx(v_full + 8 * vp.stage, L::kTileBytes);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_4d(s_base + L::kVOff + vp.stage * L::kTileBytes + p * kPanelBytes,
+                      &map_v, v_full + 8 * vp.stage, p * kPanelCols, w.head, t * kRows,
+                      w.batch);
+        vp = vp.next();
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int partial = splits > 1;
+    if (group == 0)
+      consume<L, kCausal, L::kPanels0>(w, 0, 0, w.q0, s_base, smem, &map_o, part_o,
+                                       part_ml, planes, rows_pad, kv_len, partial,
+                                       scale_log2);
+    else
+      consume<L, kCausal, L::kPanels1>(
+          w, 1, L::kSplitCols ? L::kPanels0 : 0, L::kSplitCols ? w.q0 : w.q0 + kRows,
+          s_base, smem, &map_o, part_o, part_ml, planes, rows_pad, kv_len, partial,
+          scale_log2);
+  }
+}
+
+// o[row] = sum_s 2^(m_s - M) o_s / sum_s 2^(m_s - M) l_s with M = max_s m_s,
+// in split order (the same bits on every call); one warp a row, a lane's
+// columns in 16-byte pieces 128 columns apart, the loads of a few splits
+// in flight at once. o at element strides (batch, head, row), unit columns.
+template <int kHeadDim>
+__global__ void __launch_bounds__(256)
+flash_wide_merge_kernel(const float* __restrict__ part_o,
+                        const float* __restrict__ part_ml, bf16* __restrict__ o,
+                        long long o_batch, long long o_head, long long o_row,
+                        int heads, int planes, int q_len, int rows_pad, int splits) {
+  constexpr int kPieces = (kHeadDim / 4 + 31) / 32;   // 4-column pieces a lane
+  const long long warp = blockIdx.x * 8LL + threadIdx.x / 32;
+  if (warp >= static_cast<long long>(planes) * q_len) return;
+  const int plane = static_cast<int>(warp / q_len), row = static_cast<int>(warp % q_len);
+  const int lane = threadIdx.x % 32;
+  const size_t split_rows = static_cast<size_t>(planes) * rows_pad;
+  const size_t r = static_cast<size_t>(plane) * rows_pad + row;
+  float big = kMask;
+  for (int s = 0; s < splits; ++s) big = fmaxf(big, part_ml[2 * (s * split_rows + r)]);
+  float total = 0.f;
+  float4 acc[kPieces];
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  for (int c = 0; c < kPieces; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-    for (int kk = 0; kk < kHeadDim; kk += 16) {
-      uint32_t a[4];
-      a[0] = ld32(qw + g * kLd + kk + 2 * t);
-      a[1] = ld32(qw + (g + 8) * kLd + kk + 2 * t);
-      a[2] = ld32(qw + g * kLd + kk + 8 + 2 * t);
-      a[3] = ld32(qw + (g + 8) * kLd + kk + 8 + 2 * t);
+  for (int s = 0; s < splits; ++s) {
+    const float2 ml = *reinterpret_cast<const float2*>(part_ml + 2 * (s * split_rows + r));
+    const float wgt = exp2f(ml.x - big);
+    total += wgt * ml.y;
+    const float* src = part_o + (s * split_rows + r) * kHeadDim;
 #pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-        const bf16* kr = ks + (8 * j + g) * kLd + kk + 2 * t;
-        mma_bf16(s[j], a, ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // scale, mask, row maxima (a row's 64 scores lie in the 4 lanes of a
-    // row group: elements 0, 1 on row_lo, 2, 3 on row_hi)
-    float mx[2] = {kMaskValue, kMaskValue};
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const int row = e < 2 ? row_lo : row_hi;
-        float x = s[j][e] * scale_log2;
-        if (col >= kv_len || (kCausal && col > row)) x = kMaskValue;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = alpha[r] * l[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kOutTiles; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // acc += p . v_slice, p from the score fragments in bf16
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < kOutTiles; ++n) {
-        const bf16* vr = vt + (8 * n + g) * kLdV + 16 * kk + 2 * t;
-        mma_bf16(acc[n], a, ld32(vr), ld32(vr + 8));
+    for (int c = 0; c < kPieces; ++c) {
+      const int col = 4 * (lane + 32 * c);
+      if (col < kHeadDim) {
+        const float4 x = *reinterpret_cast<const float4*>(src + col);
+        acc[c].x += wgt * x.x;
+        acc[c].y += wgt * x.y;
+        acc[c].z += wgt * x.z;
+        acc[c].w += wgt * x.w;
       }
     }
   }
-
-  const float inv_lo = 1.f / l[0], inv_hi = 1.f / l[1];
+  const float inv = 1.f / total;
+  bf16* out = o + (plane / heads) * o_batch + (plane % heads) * o_head + row * o_row;
 #pragma unroll
-  for (int n = 0; n < kOutTiles; ++n) {
-    const int col = 8 * n + 2 * t;
-    if (row_lo < q_len)
-      *reinterpret_cast<uint32_t*>(ob + row_lo * so.row + col) =
-          pack_bf16(acc[n][0] * inv_lo, acc[n][1] * inv_lo);
-    if (row_hi < q_len)
-      *reinterpret_cast<uint32_t*>(ob + row_hi * so.row + col) =
-          pack_bf16(acc[n][2] * inv_hi, acc[n][3] * inv_hi);
+  for (int c = 0; c < kPieces; ++c) {
+    const int col = 4 * (lane + 32 * c);
+    if (col < kHeadDim)
+      *reinterpret_cast<uint2*>(out + col) =
+          make_uint2(pack_bf16(acc[c].x * inv, acc[c].y * inv),
+                     pack_bf16(acc[c].z * inv, acc[c].w * inv));
   }
 }
 
 template <int kHeadDim, bool kCausal>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                   const long long* strides, int batch, int heads, int q_len,
-                   int kv_len, float scale_log2, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<kHeadDim>();
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const Geometry* geometry, float* part_o, float* part_ml,
+                   int rows_pad, int splits, int tiles_per_split, float scale_log2,
+                   cudaStream_t stream) {
+  using L = WideLayout<kHeadDim>;
+  const Geometry& gq = geometry[0];
+  const Geometry& gk = geometry[1];
+  for (int i = 0; i < 4; ++i)
+    if (geometry[i].dims[0] != static_cast<uint64_t>(kHeadDim)
+        || geometry[i].dims[1] != gq.dims[1] || geometry[i].dims[3] != gq.dims[3]
+        || geometry[i].dims[2] != (i == 0 || i == 3 ? gq : gk).dims[2])
+      return cudaErrorInvalidValue;
+  const uint64_t heads = gq.dims[1], q_len = gq.dims[2], kv_len = gk.dims[2];
+  const uint64_t planes = heads * gq.dims[3];
+  if (q_len == 0 || kv_len == 0 || q_len > INT32_MAX || kv_len > INT32_MAX
+      || planes == 0 || planes > INT32_MAX)
+    return cudaErrorInvalidValue;
+  // every split holds at least one of the kv_len tiles; partials need buffers
+  const uint64_t tiles = (kv_len + kRows - 1) / kRows;
+  if (splits < 1 || tiles_per_split < 1
+      || static_cast<uint64_t>(splits - 1) * tiles_per_split >= tiles
+      || static_cast<uint64_t>(splits) * tiles_per_split < tiles
+      || (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+    return cudaErrorInvalidValue;
+  // the caller sized the partial buffers' rows a plane by this layout's q blocks
+  const uint64_t q_blocks = (q_len + L::kBlockQ - 1) / L::kBlockQ;
+  const uint64_t blocks = q_blocks * planes * splits;
+  if (blocks > INT32_MAX || rows_pad < 1
+      || static_cast<uint64_t>(rows_pad) != q_blocks * L::kBlockQ)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  cudaError_t err = make_map(&map_q, q, geometry[0], kRows);
+  if (err == cudaSuccess) err = make_map(&map_k, k, geometry[1], kRows);
+  if (err == cudaSuccess) err = make_map(&map_v, v, geometry[2], kRows);
+  if (err == cudaSuccess) err = make_map(&map_o, o, geometry[3], kRows);
+  if (err != cudaSuccess) return err;
   auto kernel = flash_wide_fwd_kernel<kHeadDim, kCausal>;
   // once per instantiation and device
   static int allowed_on = -1;
   int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  err = cudaGetDevice(&device);
   if (err == cudaSuccess && allowed_on != device) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmem));
+                               static_cast<int>(L::kSmemBytes));
     if (err == cudaSuccess) allowed_on = device;
   }
   if (err != cudaSuccess) return err;
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
-  const Strides so{strides[9], strides[10], strides[11]};
-  const long long q_blocks = (q_len + kBlockQ - 1) / kBlockQ;
-  const long long blocks = q_blocks * (kHeadDim / kSliceFor<kHeadDim>);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks), heads, batch);
-  kernel<<<grid, kThreads, kSmem, stream>>>(q, k, v, o, sq, sk, sv, so, q_len,
-                                            kv_len, scale_log2);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, L::kSmemBytes, stream>>>(
+      map_q, map_k, map_v, map_o, part_o, part_ml, static_cast<int>(heads),
+      static_cast<int>(q_blocks), static_cast<int>(planes), static_cast<int>(kv_len),
+      splits, tiles_per_split, rows_pad, scale_log2);
   return cudaGetLastError();
 }
 
-#define FD_WIDE_CASE(D)                                                        \
-  case D:                                                                      \
-    return causal ? launch<D, true>(qb, kb, vb, ob, st, batch, heads, q_len,   \
-                                    kv_len, scale_log2, s)                     \
-                  : launch<D, false>(qb, kb, vb, ob, st, batch, heads, q_len,  \
-                                     kv_len, scale_log2, s);
+#define FD_WIDE_CASE(D)                                                          \
+  case D:                                                                        \
+    return causal ? launch<D, true>(q, k, v, o, g, po, pml, rows_pad, splits,    \
+                                    tiles_per_split, scale_log2, s)              \
+                  : launch<D, false>(q, k, v, o, g, po, pml, rows_pad, splits,   \
+                                     tiles_per_split, scale_log2, s);
 
 }  // namespace
 
 extern "C" {
 
 // q [batch, heads, q_len, head_dim], k / v [batch, heads, kv_len, head_dim],
-// o like q, all bf16 with unit column stride, in any layout that `strides`
-// describes: 12 element strides, (batch, head, row) of q, k, v and o in this
-// order, each a multiple of 8 (16 bytes), base pointers 16-byte aligned.
+// o like q, bf16, as `geometry` (four Geometry records, q, k, v, o, each
+// with 64 x 64 boxes: ops/attention.py::wide_geometry) describes them.
 // head_dim 192, 256, 320, 384, 448 or 512; `scale_log2` is the softmax scale
 // times log2 e; `causal` masks top-left (needs q_len == kv_len, which the
-// wrapper checks). Returns a cudaError_t code.
+// wrapper checks). The kv_len tiles of 64 rows are split in `splits` ranges
+// of `tiles_per_split` (ops/attention.py::wide_plan): with one split o is
+// written; with more, part_o [splits, planes, rows_pad, head_dim] and
+// part_ml [splits, planes, rows_pad, 2] (fp32) take the partials for
+// fd_flash_attention_wide_merge. rows_pad must be the q blocks' rows at
+// this head dim (WideLayout::kBlockQ; ops/attention.py::wide_plan's
+// block_q), else nothing launches.
+// Returns a cudaError_t code.
 int fd_flash_attention_wide_fwd(const void* q, const void* k, const void* v,
-                                void* o, const void* strides, int batch,
-                                int heads, int q_len, int kv_len, int head_dim,
-                                float scale_log2, int causal, void* stream) {
-  if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || q_len < 1
-      || kv_len < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                void* o, const void* geometry, void* part_o,
+                                void* part_ml, int rows_pad, int head_dim, int splits,
+                                int tiles_per_split, float scale_log2, int causal,
+                                void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* st = static_cast<const long long*>(strides);
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  auto* ob = static_cast<bf16*>(o);
+  const auto* g = static_cast<const Geometry*>(geometry);
+  auto* po = static_cast<float*>(part_o);
+  auto* pml = static_cast<float*>(part_ml);
   switch (head_dim) {
     FD_WIDE_CASE(192)
     FD_WIDE_CASE(256)
@@ -339,6 +588,44 @@ int fd_flash_attention_wide_fwd(const void* q, const void* k, const void* v,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The splits' partials (as fd_flash_attention_wide_fwd wrote them) merged
+// into bf16 o at element strides o_strides = (batch, head, row), unit
+// columns; planes = batch * heads, rows 0 ... q_len - 1 of each. Returns a
+// cudaError_t code.
+int fd_flash_attention_wide_merge(const void* part_o, const void* part_ml, void* o,
+                                  const void* o_strides, int heads, int planes,
+                                  int q_len, int rows_pad, int head_dim, int splits,
+                                  void* stream) {
+  if (heads < 1 || planes < heads || q_len < 1 || rows_pad < q_len || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* st = static_cast<const long long*>(o_strides);
+  const long long blocks = (static_cast<long long>(planes) * q_len + 7) / 8;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* po = static_cast<const float*>(part_o);
+  const auto* pml = static_cast<const float*>(part_ml);
+  auto* ob = static_cast<bf16*>(o);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  switch (head_dim) {
+#define FD_MERGE_CASE(D)                                                          \
+  case D:                                                                         \
+    flash_wide_merge_kernel<D><<<grid, 256, 0, s>>>(po, pml, ob, st[0], st[1],    \
+                                                    st[2], heads, planes, q_len,  \
+                                                    rows_pad, splits);            \
+    break;
+    FD_MERGE_CASE(192)
+    FD_MERGE_CASE(256)
+    FD_MERGE_CASE(320)
+    FD_MERGE_CASE(384)
+    FD_MERGE_CASE(448)
+    FD_MERGE_CASE(512)
+#undef FD_MERGE_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* fd_error_string(int code) {

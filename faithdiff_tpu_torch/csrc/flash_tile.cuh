@@ -43,6 +43,10 @@
 //   past the end of a sequence (their scores are still masked), clips the
 //   output store to q_len, and costs the consumers no address arithmetic.
 //
+// Also here: the host side of the operands' 4-D TMA tensor maps
+// (`Geometry`, `make_map`), shared with flash_attention_wide.cu, whose
+// kernel reuses the softmax, ring and packing helpers below.
+//
 // Arithmetic (the TPU kernels'): in base 2, scale * log2(e) is folded into
 // q once (the block rescales its Q tile in shared memory) and q is rounded
 // back to bf16, and the online softmax uses exp2; in base e, each fp32 score
@@ -480,6 +484,34 @@ __device__ __forceinline__ void attend_blocks(
       }
     }
   }
+}
+
+// One operand as the wrapper describes it: dims (column in head, head, row,
+// batch), the byte strides of the last three, and the box of one TMA tile.
+struct Geometry {
+  uint64_t dims[4];
+  uint64_t strides[3];
+  uint64_t box[4];
+};
+
+// A bf16 tensor map with the 128-byte swizzle; rows past an extent read as
+// zeros and are not written.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, const Geometry& g,
+                     int box_rows) {
+  const fd_hopper::EncodeTiled encode = fd_hopper::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (g.box[0] != kPanelCols || g.box[1] != 1
+      || g.box[2] != static_cast<uint64_t>(box_rows) || g.box[3] != 1)
+    return cudaErrorInvalidValue;
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(g.box[0]), 1,
+                             static_cast<cuuint32_t>(g.box[2]), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), g.dims,
+      g.strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace fd_flash

@@ -148,7 +148,8 @@ def _check_head_dim(what: str, d: int) -> None:
 
 def _check_strided_rows(what: str, tensors) -> None:
     """Raise unless every batch, head and row stride of the wide bf16
-    kernel's operands is a multiple of 8 elements (its 16-byte loads)."""
+    kernel's operands is a multiple of 8 elements (16 bytes, as its tensor
+    maps need)."""
     for name, strides in tensors:
         if any(st % 8 for st in strides):
             raise ValueError(f"{what}: {name} strides {strides} are not "
@@ -160,28 +161,64 @@ def _flash_f32_launch(q, k, v, out, strides, dims, scale: float,
     """The fp32 kernel over q, k, v and out as `strides` describes them:
     12 element strides, per operand those of batch, head and row (columns
     are unit); `dims` = (batch, heads, q_len, kv_len, head_dim)."""
-    _strided_call("flash_attention_f32", "fd_flash_attention_f32_fwd", q, k, v,
-                  out, strides, dims, scale, causal)
-
-
-def _flash_wide_launch(q, k, v, out, strides, dims, scale: float,
-                       causal: bool) -> None:
-    """The wide bf16 kernel (d = 192 ... 512), arguments as
-    `_flash_f32_launch`'s; every stride a multiple of 8 elements."""
-    _check_strided_rows("flash_attention_wide", [
-        (n, tuple(strides[3 * i:3 * i + 3])) for i, n in enumerate("qkvo")])
-    _strided_call("flash_attention_wide", "fd_flash_attention_wide_fwd", q, k,
-                  v, out, strides, dims, scale, causal)
-
-
-def _strided_call(lib: str, fn: str, q, k, v, out, strides, dims,
-                  scale: float, causal: bool) -> None:
-    _launch(_build.load(lib), fn,
+    _launch(_build.load("flash_attention_f32"), "fd_flash_attention_f32_fwd",
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              (ctypes.c_longlong * 12)(*strides), *dims, scale * LOG2E,
              int(causal)), q.device)
+
+
+def _flash_wide_launch(q, k, v, out, strides, dims, scale: float,
+                       causal: bool) -> None:
+    """The wide bf16 kernel (d = 192 ... 512), arguments as
+    `_flash_f32_launch`'s; every stride a multiple of 8 elements. The
+    operands go to the kernel as TMA tensor maps (`wide_geometry`); where
+    `wide_plan` splits the K/V range, the kernel writes fp32 partials and
+    the merge kernel combines them into `out`."""
+    _check_strided_rows("flash_attention_wide", [
+        (n, tuple(strides[3 * i:3 * i + 3])) for i, n in enumerate("qkvo")])
+    b, h, q_len, kv_len, d = dims
+    plan = wide_plan(b, h, q_len, kv_len, d, causal, sms=_sm_count(q.device))
+    parts = _wide_fwd_launch(q, k, v, out, strides, dims, scale, causal, plan)
+    if parts is not None:
+        _wide_merge_launch(*parts, out, strides[9:12], h, q_len)
+        _build.launches["flash_attention_wide_merge"] += 1
+
+
+def _wide_fwd_launch(q, k, v, out, strides, dims, scale: float, causal: bool,
+                     plan: WidePlan):
+    """The wide kernel's launch under `plan`: writes `out`, or with more
+    than one split returns the fp32 partials (part_o, part_ml) it wrote
+    into buffers allocated here."""
+    b, h, q_len, kv_len, d = dims
+    geometry = _geometry_argument(wide_geometry(tuple(strides), tuple(dims)))
+    parts = None
+    rows = plan.q_blocks * plan.block_q
+    if plan.splits > 1:
+        parts = (torch.empty((plan.splits, b * h, rows, d), dtype=torch.float32,
+                             device=q.device),
+                 torch.empty((plan.splits, b * h, rows, 2), dtype=torch.float32,
+                             device=q.device))
+    _launch(_build.load("flash_attention_wide"), "fd_flash_attention_wide_fwd",
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geometry,
+             *((t.data_ptr() for t in parts) if parts else (None, None)), rows, d,
+             plan.splits, plan.tiles_per_split, scale * LOG2E, int(causal)), q.device)
+    return parts
+
+
+def _wide_merge_launch(part_o, part_ml, out, out_strides, heads: int,
+                       q_len: int) -> None:
+    """The merge kernel: ``[splits, planes, rows, d]`` partials into bf16
+    `out` at element strides (batch, head, row)."""
+    splits, planes, rows, d = part_o.shape
+    _launch(_build.load("flash_attention_wide"), "fd_flash_attention_wide_merge",
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+            (part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+             (ctypes.c_longlong * 3)(*out_strides), heads, planes, q_len, rows, d,
+             splits), out.device)
 
 
 def _strided_launch(dtype):
@@ -250,6 +287,141 @@ def packed_geometry(shape, stride, heads: int, box_rows: int) -> TmaGeometry:
                          f"stride {col_stride}")
     d = f // heads
     return _tma_geometry(d, heads, rows, b, d, row_stride, batch_stride, box_rows)
+
+
+# The wide kernel (`csrc/flash_attention_wide.cu`): K/V tiles, a warpgroup's
+# q rows and every TMA box are WIDE_ROWS rows; a block holds 128 q rows (two
+# warpgroups of 64) at d <= 256 and 64 above, where its two warpgroups split
+# the columns (`WideLayout::kBlockQ` in the source, which refuses partial
+# buffers of any other row count). One block an SM runs at once; H100_SMS
+# is the card's SM count.
+WIDE_ROWS = 64
+H100_SMS = 132
+# the fewest K/V tiles a split walks: at one tile (64 keys) a block's fixed
+# cost (Q's load, the ring's fill, its fp32 partial rows) and the merge's
+# reads outweigh the parallelism (`scripts/bench_flash_wide.py --splits`)
+MIN_SPLIT_TILES = 2
+
+
+class WidePlan(NamedTuple):
+    """How the wide kernel covers one attention: `blocks` = q_blocks *
+    planes * splits blocks of `block_q` q rows, block s of a q block over
+    K/V tiles [s * tiles_per_split, (s + 1) * tiles_per_split) of the
+    `kv_tiles`."""
+    block_q: int
+    q_blocks: int
+    kv_tiles: int
+    splits: int
+    tiles_per_split: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(batch: int, heads: int, q_len: int, kv_len: int, d: int,
+              causal: bool = False, sms: int = H100_SMS,
+              splits: Optional[int] = None) -> WidePlan:
+    """The wide kernel's launch for one shape. Where the q blocks of all
+    planes leave SMs idle, the K/V tiles are split across blocks: as many
+    splits as one wave of one block an SM holds (a block more than the SMs
+    would run alone in a second wave) while each walks at least
+    MIN_SPLIT_TILES tiles, rounded so that the splits hold equal tile
+    counts and none is empty (under the causal mask a q block splits its
+    own live tiles the same way, and late splits may hold none). `splits`
+    forces a count (tests, benchmarks), rounded the same way."""
+    block_q = WIDE_ROWS * (1 if d > 256 else 2)
+    q_blocks = -(-q_len // block_q)
+    tiles = -(-kv_len // WIDE_ROWS)
+    items = q_blocks * batch * heads
+    if splits is None:
+        splits = max(1, min(sms // items, tiles // MIN_SPLIT_TILES))
+    per = -(-tiles // max(1, min(splits, tiles)))
+    splits = -(-tiles // per)
+    return WidePlan(block_q, q_blocks, tiles, splits, per, items * splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def wide_geometry(strides: tuple, dims: tuple) -> tuple:
+    """q, k, v, o as the wide kernel's tensor maps see them, from the 12
+    element strides (batch, head, row of each) and dims (batch, heads,
+    q_len, kv_len, d) the strided launch takes. Where every operand's
+    planes lie evenly apart (contiguous [B, H, S, d], or one head), the
+    heads fold into the batch dim, as `bhsd_geometry` has it; otherwise
+    (packed rows, a head d columns into a row) each keeps its own."""
+    b, h, q_len, kv_len, d = dims
+    ops = [strides[3 * i:3 * i + 3] for i in range(4)]
+    fold = h == 1 or all(sb == h * sh for sb, sh, _ in ops)
+    out = []
+    for (sb, sh, sr), rows in zip(ops, (q_len, kv_len, kv_len, q_len)):
+        if fold:
+            out.append(_tma_geometry(d, 1, rows, b * h, d, sr, sh if h > 1 else sb,
+                                     WIDE_ROWS))
+        else:
+            out.append(_tma_geometry(d, h, rows, b, sh, sr, sb, WIDE_ROWS))
+    return tuple(out)
+
+
+def wide_partials(q, k, v, scale: float, causal: bool, plan: WidePlan):
+    """The split partials the wide kernel writes, in plain PyTorch, for
+    ``[B, H, S, d]`` operands: for split s of each q block, over its K/V
+    tiles, the rows' unnormalised fp32 output (p in v's dtype before p.v),
+    max m of the fp32 scores scaled by scale * log2 e (masked ones
+    `DEFAULT_MASK_VALUE`) and sum l of 2^(score - m). Returns part_o
+    ``[splits, B*H, rows, d]`` and part_ml ``[splits, B*H, rows, 2]`` with
+    the kernel's padded rows (a split with no tile: m masked, l and o 0)."""
+    b, h, q_len, d = q.shape
+    kv_len = k.shape[2]
+    rows = plan.q_blocks * plan.block_q
+    part_o = torch.zeros((plan.splits, b * h, rows, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.zeros((plan.splits, b * h, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    part_ml[..., 0] = DEFAULT_MASK_VALUE
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (scale * LOG2E)
+    if causal:
+        above = torch.ones((q_len, kv_len), dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, DEFAULT_MASK_VALUE)
+    s = s.reshape(b * h, q_len, kv_len)
+    vf = v.reshape(b * h, kv_len, d)
+    for qb in range(plan.q_blocks):
+        r0, r1 = qb * plan.block_q, min((qb + 1) * plan.block_q, q_len)
+        n = kv_tiles(r0, kv_len, causal, plan.block_q, WIDE_ROWS)
+        for split in range(plan.splits):
+            t0, t1 = split * plan.tiles_per_split, min((split + 1) * plan.tiles_per_split, n)
+            if t1 <= t0:
+                continue
+            c0, c1 = t0 * WIDE_ROWS, min(t1 * WIDE_ROWS, kv_len)
+            sc = s[:, r0:r1, c0:c1]
+            m = sc.amax(dim=-1, keepdim=True)
+            p = torch.exp2(sc - m)
+            part_ml[split, :, r0:r1, 0] = m[..., 0]
+            part_ml[split, :, r0:r1, 1] = p.sum(dim=-1)
+            part_o[split, :, r0:r1] = torch.matmul(p.to(v.dtype).float(),
+                                                   vf[:, c0:c1].float())
+    return part_o, part_ml
+
+
+def merge_wide_partials(part_o, part_ml):
+    """The merge kernel's plain version: ``[splits, planes, rows, d]``
+    partials and their ``[..., 2]`` (max, sum) into the fp32 output
+    ``[planes, rows, d]``, o = sum_s 2^(m_s - M) o_s / sum_s 2^(m_s - M) l_s
+    with M the rows' largest m_s."""
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    w = torch.exp2(m - m.amax(dim=0))
+    total = (w * l).sum(dim=0)
+    return (w[..., None] * part_o).sum(dim=0) * (1.0 / total)[..., None]
+
+
+def wide_attention_split(q, k, v, scale: float, causal: bool, plan: WidePlan):
+    """The wide kernel's split-and-merge path in plain PyTorch
+    (`wide_partials`, then `merge_wide_partials`), in q's dtype."""
+    b, h, q_len, d = q.shape
+    merged = merge_wide_partials(*wide_partials(q, k, v, scale, causal, plan))
+    return merged.reshape(b, h, -1, d)[:, :, :q_len].to(q.dtype)
 
 
 @functools.lru_cache(maxsize=256)

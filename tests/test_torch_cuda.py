@@ -7,6 +7,7 @@ Imports no JAX, so the file also runs on a machine without it:
 """
 import ctypes
 import dataclasses
+import functools
 import re
 import shutil
 import subprocess
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from faithdiff_tpu_torch.ops import _build
+from faithdiff_tpu_torch.ops import attention as A
 from faithdiff_tpu_torch.ops.attention import (attention_packed,
                                                attention_reference,
                                                einsum_bsnd, flash_attention,
@@ -220,6 +222,76 @@ WIDE_DIMS = (192, 256, 320, 384, 448, 512)
 WIDE_COUNTER = {torch.bfloat16: "flash_attention_wide", torch.float32: "flash_attention_f32_wide"}
 
 
+def _wide_merges(dtype, b, h, sq, skv, d, causal) -> dict:
+    """The merge launch a wide call adds: the bf16 kernel's, where its plan
+    splits the K/V range."""
+    plan = A.wide_plan(b, h, sq, skv, d, causal, sms=A._sm_count(torch.device("cuda")))
+    if dtype == torch.bfloat16 and plan.splits > 1:
+        return {"flash_attention_wide_merge": 1}
+    return {}
+
+
+@pytest.mark.parametrize("splits", [1, 2, None], ids=["1split", "2splits", "planned"])
+@pytest.mark.parametrize("layout,causal", [("bhsd", False), ("bhsd", True),
+                                           ("packed", False)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_flash_attention_wide_bf16_splits_same_bits(cuda, monkeypatch, d, layout,
+                                                    causal, splits):
+    """The bf16 wide kernel at one split, two and its plan's count (forced
+    through `wide_plan`), ragged BHSD lengths, causal, and packed column
+    slices: within the bf16 tolerance of the plain version, the same bits
+    on a second call, and the merge launched exactly when the K/V range is
+    split."""
+    monkeypatch.setattr(A, "wide_plan", functools.partial(A.wide_plan, splits=splits))
+    g = torch.Generator(device=cuda).manual_seed(d + (splits or 0))
+    if layout == "bhsd":
+        b, h, sq, skv = (1, 2, 1030, 1030) if causal else (2, 2, 1000, 1100)
+        q = torch.randn((b, h, sq, d), generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn((b, h, skv, d), generator=g, device=cuda).bfloat16()
+                for _ in range(2))
+        run = lambda: flash_attention(q, k, v, d ** -0.5, causal)  # noqa: E731
+        ref = attention_reference(q, k, v, d ** -0.5, causal)
+        counter = "flash_attention_wide_fwd"
+    else:
+        b, h, sq, skv, f = 2, 2, 1030, 1100, 2 * d
+        q = torch.randn((b, sq, 3 * f), generator=g, device=cuda).bfloat16()[..., f:2 * f]
+        k, v = torch.randn((b, skv, 2 * f), generator=g, device=cuda).bfloat16().split(
+            f, dim=-1)
+        run = lambda: flash_attention_packed(q, k, v, h, d ** -0.5)  # noqa: E731
+        ref = einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(), h, d ** -0.5)
+        counter = "flash_attention_wide_bsnd_fwd"
+    plan = A.wide_plan(b, h, sq, skv, d, causal)
+    assert splits is None or plan.splits == splits
+    _build.launches.clear()
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    merged = 2 if plan.splits > 1 else 0
+    assert dict(_build.launches) == {counter: 2, **(
+        {"flash_attention_wide_merge": merged} if merged else {})}
+    assert _within(out, ref)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("d", [256, 512])
+def test_flash_attention_wide_entry_refuses_rows_off_its_layout(cuda, d, splits):
+    """The entry point takes the partial buffers' rows a plane only as its
+    own layout's q blocks give them: one q block more or fewer is refused
+    before anything launches, with one split or eight."""
+    b, h, s = 1, 1, 1024
+    q, k, v = (torch.randn((b, h, s, d), device=cuda).bfloat16() for _ in range(3))
+    out = torch.empty_like(q)
+    strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+    plan = A.wide_plan(b, h, s, s, d, splits=splits)
+    launch = functools.partial(A._wide_fwd_launch, q, k, v, out, strides,
+                               (b, h, s, s, d), d ** -0.5, False)
+    launch(plan)
+    torch.cuda.synchronize()
+    for q_blocks in (plan.q_blocks - 1, plan.q_blocks + 1):
+        with pytest.raises(RuntimeError, match="fd_flash_attention_wide_fwd"):
+            launch(plan._replace(q_blocks=q_blocks))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("b,h,sq,skv,causal", [
@@ -234,7 +306,8 @@ def test_flash_attention_wide_matches_plain(cuda, no_tf32, dtype, d, b, h, sq, s
     _build.launches.clear()
     out = flash_attention(q, k, v, d ** -0.5, causal)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {WIDE_COUNTER[dtype] + "_fwd": 1}
+    assert dict(_build.launches) == {WIDE_COUNTER[dtype] + "_fwd": 1,
+                                     **_wide_merges(dtype, b, h, sq, skv, d, causal)}
     within = _within if dtype == torch.bfloat16 else _within_f32
     assert within(out, attention_reference(q, k, v, d ** -0.5, causal))
 
@@ -251,7 +324,8 @@ def test_flash_attention_packed_wide_takes_column_slices(cuda, no_tf32, dtype, d
     _build.launches.clear()
     out = flash_attention_packed(q, k, v, heads, d ** -0.5)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {WIDE_COUNTER[dtype] + "_bsnd_fwd": 1}
+    assert dict(_build.launches) == {WIDE_COUNTER[dtype] + "_bsnd_fwd": 1,
+                                     **_wide_merges(dtype, 2, heads, sq, skv, d, False)}
     within = _within if dtype == torch.bfloat16 else _within_f32
     assert within(out, einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(),
                                    heads, d ** -0.5))
