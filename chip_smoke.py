@@ -197,8 +197,10 @@
 9c. fp32 and multi-GPU. `kernel_checks` also holds the fp32 flash kernel
    (`csrc/flash_attention_f32.cu`) against its plain version in full fp32
    (TF32 off) within 2e-5 * max|ref| at [2,10,4096,64], [2,20,1024,64],
-   causal [1,40,1024,128] and packed [2,4096,640] (10 heads), with its
-   bound at the fp32 CUDA-core rate and SDPA in fp32 as the yardstick.
+   causal [1,40,1024,128] and packed [2,4096,640] (10 heads), the same bits
+   on two calls, with its bound at the rate of fp32-accurate tensor-core
+   products (3xTF32: 495 / 3 TFLOP/s) and SDPA in fp32 as the yardstick
+   (its own largest error against the plain version beside the kernel's).
    `serving_demo` (after `png_formats`): `serving/web_demo.py` through its
    `main` in a subprocess on `cli_restore`'s checkpoint; its `/restore`
    of `cli_restore`'s photo identical in every byte to the CLI's PNG, and
@@ -224,12 +226,13 @@
    it picked) and the bound; the bf16 kernel at [1,1,16384,512] beside
    `chunked_attention` (where the gate keeps that shape); every wide head
    dim at ragged, causal and packed column-slice shapes (bf16 within 1e-2
-   + 8e-3*|ref|, fp32 within 2e-5 * max|ref|, TF32 off), the bf16 kernel
-   there at one split, two and its plan's count (`wide_plan`); each bf16
-   row with its plan (`splits`, `blocks`) and whether two calls give the
-   same bits (`same_bits`, part of `ok`); `attention_wide_merge`: the
+   + 8e-3*|ref|, fp32 within 2e-5 * max|ref|, TF32 off), each kernel
+   there at one split, two and its plan's count (`wide_plan`, `f32_plan`);
+   each row with its plan (`splits`, `blocks`) and whether two calls give
+   the same bits (`same_bits`, part of `ok`); `attention_wide_merge`: the
    split merge kernel alone at the VAE's shape against its plain version
-   on the same partials, timed. `jpeg_decode`:
+   on the same partials, timed, with bf16 output and with fp32 (the fp32
+   kernel's splits). `jpeg_decode`:
    every fixture of `tests/data/jpeg/` through the port's decoder (the
    host library built here by the host compiler), each RGB SHA-256 the
    manifest's Pillow hash; ms a megapixel of the 1024x1536 baseline and
@@ -243,12 +246,13 @@
    pixels as a PNG.
    `train_fp32_wide` (after `train_fp32`): `train --dtype float32` at 256
    px, one micro-step: 2 launches of the fp32 kernel at d = 512 (VAE
-   encode, denoise encoder), a finite loss.
+   encode, denoise encoder) and of its split merge (`f32_plan` splits
+   [2,1,1024,512]), a finite loss.
 10. Prints the card line, a JSON line listing every ported kernel (with
    its launches per training micro-step of both stages, and on the fp8
    and Karras restores, the VQA phase, a caption training step and the
    fp32 micro-steps; the wide kernels with their launches on
-   `cli_restore_jpeg` and `train_fp32_wide` and their packed row, the bf16
+   `cli_restore_jpeg` and `train_fp32_wide` and their packed row, each
    one's split merge with its launches there), then a
    last JSON line `{"ok": true, "device": {...}}`, only when every phase
    passed. Each phase prints its wall seconds (`phase <name>: <s> s`).
@@ -275,6 +279,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+# fp32-accurate products on the tensor cores: the dense TF32 rate over the
+# three TF32 products (3xTF32) one fp32 product takes; the fp32 flash
+# kernel's bound (GroupNorm's fp32 sums keep the CUDA-core rate)
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 
 # (shape [B, H, S, D], causal): the UNet self-attentions at a 1024^2 tile
@@ -618,8 +626,10 @@ def f32_flash_row(torch, label, q, k, v, scale, causal=False, heads=None,
                   timed=True) -> dict:
     """The fp32 kernel (`flash_attention`, or `flash_attention_packed` with
     `heads`) against its plain version on q, k, v, TF32 off: within
-    F32_FLASH_TOL * max|ref| and finite; with `timed`, ms, plain ms, SDPA's
-    ms in fp32 (the yardstick) and the bound at the fp32 CUDA-core rate."""
+    F32_FLASH_TOL * max|ref|, finite, the same bits on a second call; with
+    `timed`, ms, plain ms, SDPA's ms in fp32 (the yardstick) and its own
+    largest error against the plain version, and the bound at the 3xTF32
+    rate."""
     import torch.nn.functional as F
 
     from faithdiff_tpu_torch.ops.attention import (attention_reference, einsum_bsnd,
@@ -637,22 +647,27 @@ def f32_flash_row(torch, label, q, k, v, scale, causal=False, heads=None,
         kernel = lambda: flash_attention_packed(q, k, v, h, scale)  # noqa: E731
         plain = lambda: einsum_bsnd(q, k, v, h, scale)  # noqa: E731
         views = tuple(t.view(b, -1, h, d).transpose(1, 2) for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        *views, is_causal=causal, scale=scale)
     with tf32_off(torch):
         out = kernel()
+        same = bool(torch.equal(out, kernel()))
         torch.cuda.synchronize()
         ref = plain()
         err = float((out - ref).abs().max())
         tol = F32_FLASH_TOL * float(ref.abs().max())
         row = dict(shape=list(q.shape), heads=h, causal=causal, max_abs_err=err,
-                   tol=f"{F32_FLASH_TOL} * max|ref| = {tol:.3g}",
-                   ok=err <= tol and bool(torch.isfinite(out).all()))
+                   tol=f"{F32_FLASH_TOL} * max|ref| = {tol:.3g}", same_bits=same,
+                   ok=err <= tol and same and bool(torch.isfinite(out).all()))
         if timed:
+            lib_out = library()
+            if heads is not None:
+                lib_out = lib_out.transpose(1, 2).reshape(ref.shape)
             pairs = s * (s + 1) / 2 if causal else s * s
             row.update(flash_timing(
                 torch, 4 * b * h * d * pairs, 4 * b * h * s * d * 4, kernel, plain,
-                lambda: F.scaled_dot_product_attention(*views, is_causal=causal,
-                                                       scale=scale),
-                peak=PEAK_FP32_FLOPS))
+                library, peak=PEAK_TF32X3_FLOPS),
+                library_max_abs_err=float((lib_out - ref).abs().max()))
     print(label, json.dumps(row), flush=True)
     return row
 
@@ -730,18 +745,19 @@ def check_attention_wide(torch):
         rows.append(row)
         return row
 
-    def repeat(row, kernel, shape):
-        """The bf16 kernel's split plan at `shape` (b, h, q_len, kv_len, d,
+    def repeat(row, kernel, shape, dtype):
+        """The kernel's split plan at `shape` (b, h, q_len, kv_len, d,
         causal) on the row, and whether two calls give the same bits (part
         of `ok`)."""
-        plan = A.wide_plan(*shape, sms=A._sm_count(torch.device("cuda")))
+        plan = (A.wide_plan if dtype == torch.bfloat16 else A.f32_plan)(
+            *shape, sms=A._sm_count(torch.device("cuda")))
         same = bool(torch.equal(kernel(), kernel()))
         row.update(splits=plan.splits, blocks=plan.blocks, same_bits=same,
                    ok=row["ok"] and same)
 
     with tf32_off(torch):
         for dtype, peak, esize in ((torch.bfloat16, PEAK_BF16_FLOPS, 2),
-                                   (torch.float32, PEAK_FP32_FLOPS, 4)):
+                                   (torch.float32, PEAK_TF32X3_FLOPS, 4)):
             for shape, causal in WIDE_SHAPES:
                 b, h, s, d = shape
                 q, k, v = (randn(shape, dtype) for _ in range(3))
@@ -756,8 +772,11 @@ def check_attention_wide(torch):
                     torch, 4 * b * h * d * s * s, 4 * b * h * s * d * esize, kernel,
                     lambda: attention_reference(q, k, v, scale, causal), library,
                     peak=peak), sdpa_backend=sdpa_backend(torch, library))
-                if dtype == torch.bfloat16:
-                    repeat(row, kernel, (b, h, s, s, d, causal))
+                if dtype == torch.float32:
+                    row["library_max_abs_err"] = float(
+                        (library() - attention_reference(q, k, v, scale, causal))
+                        .abs().max())
+                repeat(row, kernel, (b, h, s, s, d, causal), dtype)
                 print("attention_wide", json.dumps(row), flush=True)
                 del q, k, v
             for shape, heads in WIDE_PACKED:
@@ -775,8 +794,11 @@ def check_attention_wide(torch):
                     torch, 4 * b * heads * d * s * s, 4 * b * s * f * esize, kernel,
                     lambda: einsum_bsnd(q, k, v, heads, scale), library, peak=peak),
                     sdpa_backend=sdpa_backend(torch, library))
-                if dtype == torch.bfloat16:
-                    repeat(row, kernel, (b, heads, s, s, d, False))
+                if dtype == torch.float32:
+                    row["library_max_abs_err"] = float(
+                        (library().transpose(1, 2).reshape(b, s, f)
+                         - einsum_bsnd(q, k, v, heads, scale)).abs().max())
+                repeat(row, kernel, (b, heads, s, s, d, False), dtype)
                 print("attention_wide_packed", json.dumps(row), flush=True)
                 del q, k, v, views
         # the 1024 px tile's VAE attention: the kernel beside the path's
@@ -792,38 +814,39 @@ def check_attention_wide(torch):
         row.update(flash_timing(torch, 4 * b * h * d * s * s, 4 * b * h * s * d * 2,
                                 kernel, lambda: chunked_attention(q, k, v, scale),
                                 library), sdpa_backend=sdpa_backend(torch, library))
-        repeat(row, kernel, (b, h, s, s, d, False))
+        repeat(row, kernel, (b, h, s, s, d, False), torch.bfloat16)
         print("attention_wide_long", json.dumps(row), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
         # every instance, both dtypes: ragged non-causal, causal with a
         # partial last tile, and packed column slices of fused projections
-        # (the bf16 kernel at one split, at two and at its plan's count,
-        # each twice: the same bits)
-        planned = A.wide_plan
+        # (each kernel at one split, at two and at its plan's count, each
+        # twice: the same bits)
         for dtype in (torch.bfloat16, torch.float32):
-            for d in WIDE_DIMS:
+            plan_name = "wide_plan" if dtype == torch.bfloat16 else "f32_plan"
+            planned = getattr(A, plan_name)
+            # the fp32 kernel also at d = 64 and 128, where it splits the same way
+            for d in WIDE_DIMS if dtype == torch.bfloat16 else (64, 128) + WIDE_DIMS:
                 scale = d ** -0.5
-                splits = (1, 2, None) if dtype == torch.bfloat16 else (None,)
+                splits = (1, 2, None)
                 for (b, h, sq, skv), causal in (((2, 2, 1000, 1100), False),
                                                 ((1, 2, 1030, 1030), True)):
                     q = randn((b, h, sq, d), dtype)
                     k, v = randn((b, h, skv, d), dtype), randn((b, h, skv, d), dtype)
                     ref = attention_reference(q, k, v, scale, causal)
                     for n in splits:
-                        A.wide_plan = functools.partial(planned, splits=n)
+                        setattr(A, plan_name, functools.partial(planned, splits=n))
                         try:
                             out = flash_attention(q, k, v, scale, causal)
                             same = bool(torch.equal(out, flash_attention(q, k, v, scale,
                                                                          causal)))
-                            plan = A.wide_plan(b, h, sq, skv, d, causal)
+                            plan = getattr(A, plan_name)(b, h, sq, skv, d, causal)
                         finally:
-                            A.wide_plan = planned
+                            setattr(A, plan_name, planned)
                         row = hold(out, ref, dtype,
                                    case=f"bhsd {[b, h, sq, skv, d]} causal={causal}")
-                        if dtype == torch.bfloat16:
-                            row.update(splits=plan.splits, same_bits=same,
-                                       ok=row["ok"] and same)
+                        row.update(splits=plan.splits, same_bits=same,
+                                   ok=row["ok"] and same)
                         print("attention_wide_ragged", json.dumps(row), flush=True)
                 heads, f = 2, 2 * d
                 q = randn((2, 1030, 3 * f), dtype)[..., f:2 * f]
@@ -831,58 +854,70 @@ def check_attention_wide(torch):
                 ref = einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(), heads,
                                   scale)
                 for n in splits:
-                    A.wide_plan = functools.partial(planned, splits=n)
+                    setattr(A, plan_name, functools.partial(planned, splits=n))
                     try:
                         out = flash_attention_packed(q, k, v, heads, scale)
                         same = bool(torch.equal(out, flash_attention_packed(
                             q, k, v, heads, scale)))
-                        plan = A.wide_plan(2, heads, 1030, 1100, d)
+                        plan = getattr(A, plan_name)(2, heads, 1030, 1100, d)
                     finally:
-                        A.wide_plan = planned
+                        setattr(A, plan_name, planned)
                     row = hold(out, ref, dtype, case=f"packed column slices "
                                f"{[2, 1030, 1100, f]} heads={heads}")
-                    if dtype == torch.bfloat16:
-                        row.update(splits=plan.splits, same_bits=same,
-                                   ok=row["ok"] and same)
+                    row.update(splits=plan.splits, same_bits=same, ok=row["ok"] and same)
                     print("attention_wide_ragged", json.dumps(row), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
     return rows
 
 
-def check_wide_merge(torch) -> dict:
-    """The bf16 wide kernel's split merge (`flash_wide_merge_kernel`) alone at
-    the VAE's shape (WIDE_SHAPES[0]) under its plan: the partials from the
-    kernel's own split launch, merged by the merge kernel and by its plain
-    version (`merge_wide_partials`) on the same partials, within one bf16
-    rounding (4e-3 * |ref| + 1e-5); the merge timed from CUDA graphs. Its
-    bound counts only what must cross HBM, bf16 o written once: the split
-    kernel writes the fp32 partials (16.8 MB here) just before, and they
-    are read back from the 50 MB L2, and no L2 rate enters the bound; its
-    operations are one fp32 FMA a partial element, at the CUDA-core rate."""
+def check_wide_merge(torch, dtype=None) -> dict:
+    """A split kernel's merge (`flash_wide_merge_kernel`) alone at the VAE's
+    shape (WIDE_SHAPES[0]) under its plan: bf16 (the wide bf16 kernel's
+    partials and merge, within one bf16 rounding, 4e-3 * |ref| + 1e-5) or
+    fp32 (`dtype`: the fp32 kernel's partials and its fp32-output merge,
+    within 1e-6 * max|ref|: the splits summed in another order); the
+    partials from the kernel's own split launch, merged by the merge
+    kernel and by its plain version (`merge_wide_partials`) on the same
+    partials; the merge timed from CUDA graphs. Its bound counts only what
+    must cross HBM, o written once: the split kernel writes the fp32
+    partials (16.8 MB here) just before, and they are read back from the
+    50 MB L2, and no L2 rate enters the bound; its operations are one fp32
+    FMA a partial element, at the CUDA-core rate."""
     from faithdiff_tpu_torch.ops import attention as A
     from faithdiff_tpu_torch.utils.profiling import time_ms
 
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    source = "flash_attention_f32" if f32 else "flash_attention_wide"
     b, h, s, d = WIDE_SHAPES[0][0]
     gen = torch.Generator(device="cuda").manual_seed(19)
-    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     out = torch.empty_like(q)
     strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
-    plan = A.wide_plan(b, h, s, s, d, sms=A._sm_count(q.device))
+    plan = (A.f32_plan if f32 else A.wide_plan)(b, h, s, s, d, sms=A._sm_count(q.device))
     part_o, part_ml = A._wide_fwd_launch(q, k, v, out, strides, (b, h, s, s, d),
-                                         d ** -0.5, False, plan)
-    merge = lambda: A._wide_merge_launch(part_o, part_ml, out, strides[9:12], h, s)  # noqa: E731
+                                         d ** -0.5, False, plan, source=source)
+    merge = lambda: A._wide_merge_launch(part_o, part_ml, out, strides[9:12], h, s,  # noqa: E731
+                                         source=source)
     plain = lambda: A.merge_wide_partials(part_o, part_ml)[:, :s]  # noqa: E731
     merge()
     torch.cuda.synchronize()
     ref = plain().reshape(out.shape)
     err = (out.float() - ref).abs()
-    b_ms, b_by = bound(2 * part_o[:, :, :s].numel(), out.numel() * 2, PEAK_FP32_FLOPS)
+    if f32:
+        tol = "1e-6 * max|ref|"
+        ok = float(err.max()) <= 1e-6 * float(ref.abs().max())
+    else:
+        tol = "4e-3*|ref| + 1e-5"
+        ok = bool((err <= 4e-3 * ref.abs() + 1e-5).all())
+    b_ms, b_by = bound(2 * part_o[:, :, :s].numel(), out.numel() * out.element_size(),
+                       PEAK_FP32_FLOPS)
     ms = graph_ms(torch, merge)
-    row = dict(check="wide_merge", shape=[b, h, s, d], splits=plan.splits,
-               max_abs_err=float(err.max()), tol="4e-3*|ref| + 1e-5",
-               ok=bool((err <= 4e-3 * ref.abs() + 1e-5).all()), ms=ms,
+    row = dict(check="wide_merge", dtype=str(dtype).split(".")[-1], shape=[b, h, s, d],
+               splits=plan.splits, max_abs_err=float(err.max()), tol=tol,
+               ok=ok and bool(torch.isfinite(out).all()), ms=ms,
                plain_ms=time_ms(plain, 3, 1), library_ms=None, bound_ms=b_ms,
                bound_by=b_by, ms_over_bound=ms / b_ms,
                partial_bytes=part_o.numel() * 4 + part_ml.numel() * 4)
@@ -4460,6 +4495,21 @@ def run_vqa(torch, agent, root: str) -> dict:
 # up block 1) are 10 fp32 flash launches a micro-step
 FP32_TRAIN_STEPS, FP32_FLASH_PER_STEP = 2, 10
 FP32_TRAIN_SHAPE = (2, 10, 1024, 64)
+# train_fp32_wide's d = 512 attention (batch 2, a 32 x 32 latent)
+FP32_WIDE_SHAPE = (2, 1, 1024, 512)
+
+
+def f32_attention_launches(name: str, count: int, shape) -> dict:
+    """The attention counters `count` fp32 flash launches of counter `name`
+    at `shape` ([B, H, S, d], non-causal) give: the kernel's, and its
+    merge's where `f32_plan` splits the shape on this card."""
+    import torch
+
+    from faithdiff_tpu_torch.ops.attention import _sm_count, f32_plan
+
+    b, h, n, d = shape
+    plan = f32_plan(b, h, n, n, d, sms=_sm_count(torch.device("cuda")))
+    return {name: count, **({"flash_attention_f32_merge": count} if plan.splits > 1 else {})}
 SERVER_START_S = 300                     # a server's start-up, its model load included
 
 
@@ -4598,9 +4648,10 @@ def run_train_fp32(torch, root: str) -> dict:
     for i, st in enumerate(steps):
         name = "flash_attention_f32_bsnd_fwd" if st["packed"] else "flash_attention_f32_fwd"
         flash = {n: c for n, c in st["launches"].items() if "attention" in n}
-        if flash != {name: FP32_FLASH_PER_STEP} or not math.isfinite(st["loss"]):
+        want = f32_attention_launches(name, FP32_FLASH_PER_STEP, FP32_TRAIN_SHAPE)
+        if flash != want or not math.isfinite(st["loss"]):
             fail(f"train_fp32: micro-step {i + 1}: loss {st['loss']}, attention "
-                 f"launches {flash}, expected {{{name!r}: {FP32_FLASH_PER_STEP}}}")
+                 f"launches {flash}, expected {want}")
     if len(steps) != FP32_TRAIN_STEPS + 1 or not steps[-1]["packed"]:
         fail(f"train_fp32: {len(steps)} micro-steps {[s['packed'] for s in steps]}")
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -4772,10 +4823,13 @@ def run_train_fp32_wide(torch, root: str) -> dict:
     at FP32_WIDE_RES px, stage 1, batch 2, one micro-step: its VAE encode
     and denoise encoder run the fp32 kernel at d = 512 (a 32 x 32 latent),
     FP32_WIDE_PER_STEP launches and no other attention kernel (the UNet's
-    attentions are under 1024 tokens), with a finite loss. Checkpoint
-    writes are stubbed, as in `train_fp32`."""
+    attentions are under 1024 tokens), and their merges where `f32_plan`
+    splits, with a finite loss. Checkpoint writes are stubbed, as in
+    `train_fp32`. Then the fp32 kernel at FP32_WIDE_SHAPE, under the plan
+    the path ran, against its plain version."""
     from faithdiff_tpu_torch import cli
     from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops.attention import _sm_count, f32_plan
     from faithdiff_tpu_torch.training import checkpoint as C
     from faithdiff_tpu_torch.training import logging as L
 
@@ -4798,11 +4852,25 @@ def run_train_fp32_wide(torch, root: str) -> dict:
     loss = L.read_metrics(os.path.join(root, "fp32_wide_run", "logs"))[-1]["train_loss"]
     if not math.isfinite(loss):
         fail(f"train_fp32_wide: loss {loss}")
-    if attention != {"flash_attention_f32_wide_fwd": FP32_WIDE_PER_STEP}:
-        fail(f"train_fp32_wide: attention launches {attention}, expected "
-             f"{{'flash_attention_f32_wide_fwd': {FP32_WIDE_PER_STEP}}}")
+    want = f32_attention_launches("flash_attention_f32_wide_fwd", FP32_WIDE_PER_STEP,
+                                  FP32_WIDE_SHAPE)
+    if attention != want:
+        fail(f"train_fp32_wide: attention launches {attention}, expected {want}")
+    b, h, n, d = FP32_WIDE_SHAPE
+    plan = f32_plan(b, h, n, n, d, sms=_sm_count(torch.device("cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = (torch.randn(FP32_WIDE_SHAPE, generator=gen, device="cuda")
+               for _ in range(3))
+    check = f32_flash_row(torch, "train_fp32_wide_attention", q, k, v, d ** -0.5,
+                          timed=False)
+    del q, k, v
+    if not check["ok"]:
+        fail(f"train_fp32_wide: the fp32 kernel at the training shape: {check}")
     row = dict(check="train_fp32_wide", res=FP32_WIDE_RES, batch=2, micro_steps=1,
-               launches=launches, cli_wall_s=wall, loss=loss)
+               launches=launches, cli_wall_s=wall, loss=loss,
+               kernel_shape=list(FP32_WIDE_SHAPE), kernel_splits=plan.splits,
+               kernel_blocks=plan.blocks, kernel_max_abs_err=check["max_abs_err"],
+               kernel_tol=check["tol"], kernel_same_bits=check["same_bits"])
     print(json.dumps(row), flush=True)
     return dict(row, launches=launches)
 
@@ -5052,6 +5120,7 @@ def main() -> int:
     with phase("attention_wide_d"):
         wide = check_attention_wide(torch)
         wide.append(check_wide_merge(torch))
+        wide.append(check_wide_merge(torch, torch.float32))
     bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_ + f32
            + wide if not r["ok"]]
     if bad:
@@ -5249,7 +5318,19 @@ def main() -> int:
                         "train_fp32_micro_steps": [
                             st.get(name, 0) for st in fp32["launches_per_micro_step"]]})
 
-    merge_row = next(r for r in wide if r.get("check") == "wide_merge")
+    merge_rows = {r["dtype"]: r for r in wide if r.get("check") == "wide_merge"}
+
+    def merge_entry(name, dtype, dims, source, launches):
+        """A split kernel's merge: its row at the VAE's shape, its launches
+        on the path that runs it; `dims` the head dims its kernel splits."""
+        return dict(name=name, route="cuda", source=source,
+                    replaces=(f"faithdiff_tpu/ops/attention.py:45 at d = {dims} (the "
+                              f"K/V loop's carried softmax state, across split blocks; "
+                              f"{dtype})"),
+                    launches=launches.get(name, 0),
+                    **{k: merge_rows[dtype][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "ms_over_bound", "library_ms", "shape", "splits")})
 
     def wide_entry(name, packed_name, dtype, source, launches):
         """A wide head-dim kernel: its row at the VAE's [1, 1, 1024, 512],
@@ -5301,17 +5382,15 @@ def main() -> int:
         wide_entry("flash_attention_wide_fwd", "flash_attention_wide_bsnd_fwd",
                    "bfloat16", "faithdiff_tpu_torch/csrc/flash_attention_wide.cu",
                    jpeg_row["launches"]),
-        dict(name="flash_attention_wide_merge", route="cuda",
-             source="faithdiff_tpu_torch/csrc/flash_attention_wide.cu",
-             replaces=("faithdiff_tpu/ops/attention.py:45 at d = 192 ... 512 (the K/V "
-                       "loop's carried softmax state, across split blocks)"),
-             launches=jpeg_row["launches"].get("flash_attention_wide_merge", 0),
-             **{k: merge_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "ms_over_bound", "library_ms",
-                                          "shape", "splits")}),
+        merge_entry("flash_attention_wide_merge", "bfloat16", "192 ... 512",
+                    "faithdiff_tpu_torch/csrc/flash_attention_wide.cu",
+                    jpeg_row["launches"]),
         wide_entry("flash_attention_f32_wide_fwd", "flash_attention_f32_wide_bsnd_fwd",
                    "float32", "faithdiff_tpu_torch/csrc/flash_attention_f32.cu",
                    fp32_wide["launches"]),
+        merge_entry("flash_attention_f32_merge", "float32", "64 ... 512",
+                    "faithdiff_tpu_torch/csrc/flash_attention_f32.cu (flash_tile.cuh's "
+                    "flash_wide_merge_kernel, fp32 output)", fp32_wide["launches"]),
         entry("attention_variant_fwd",
               next(r for r in variants
                    if (tuple(r["shape"]), r["base2"], r["block_k"]) == VARIANT_REPORT),

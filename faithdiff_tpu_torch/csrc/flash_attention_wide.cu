@@ -44,8 +44,9 @@
 //    block time and merge traffic than it wins: PERF.md). [1, 1, 1024,
 //    512] has 16 q blocks and runs 8 splits of 2 tiles. A split writes its
 //    unnormalised fp32 partial output and its rows' max and sum to buffers
-//    the wrapper allocates; flash_wide_merge_kernel then combines the
-//    splits in split order. No atomics: a repeat gives the same bits.
+//    the wrapper allocates; flash_wide_merge_kernel (flash_tile.cuh, shared
+//    with the fp32 kernel) then combines the splits in split order. No
+//    atomics: a repeat gives the same bits.
 // 3. Asynchronous copies. Q, K and V arrive by TMA tensor maps (128-byte
 //    swizzle, 64-column panels) on mbarriers that count bytes: one producer
 //    thread fills the K ring, another the V ring, so a tile's K loads while
@@ -437,59 +438,6 @@ flash_wide_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// o[row] = sum_s 2^(m_s - M) o_s / sum_s 2^(m_s - M) l_s with M = max_s m_s,
-// in split order (the same bits on every call); one warp a row, a lane's
-// columns in 16-byte pieces 128 columns apart, the loads of a few splits
-// in flight at once. o at element strides (batch, head, row), unit columns.
-template <int kHeadDim>
-__global__ void __launch_bounds__(256)
-flash_wide_merge_kernel(const float* __restrict__ part_o,
-                        const float* __restrict__ part_ml, bf16* __restrict__ o,
-                        long long o_batch, long long o_head, long long o_row,
-                        int heads, int planes, int q_len, int rows_pad, int splits) {
-  constexpr int kPieces = (kHeadDim / 4 + 31) / 32;   // 4-column pieces a lane
-  const long long warp = blockIdx.x * 8LL + threadIdx.x / 32;
-  if (warp >= static_cast<long long>(planes) * q_len) return;
-  const int plane = static_cast<int>(warp / q_len), row = static_cast<int>(warp % q_len);
-  const int lane = threadIdx.x % 32;
-  const size_t split_rows = static_cast<size_t>(planes) * rows_pad;
-  const size_t r = static_cast<size_t>(plane) * rows_pad + row;
-  float big = kMask;
-  for (int s = 0; s < splits; ++s) big = fmaxf(big, part_ml[2 * (s * split_rows + r)]);
-  float total = 0.f;
-  float4 acc[kPieces];
-#pragma unroll
-  for (int c = 0; c < kPieces; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int s = 0; s < splits; ++s) {
-    const float2 ml = *reinterpret_cast<const float2*>(part_ml + 2 * (s * split_rows + r));
-    const float wgt = exp2f(ml.x - big);
-    total += wgt * ml.y;
-    const float* src = part_o + (s * split_rows + r) * kHeadDim;
-#pragma unroll
-    for (int c = 0; c < kPieces; ++c) {
-      const int col = 4 * (lane + 32 * c);
-      if (col < kHeadDim) {
-        const float4 x = *reinterpret_cast<const float4*>(src + col);
-        acc[c].x += wgt * x.x;
-        acc[c].y += wgt * x.y;
-        acc[c].z += wgt * x.z;
-        acc[c].w += wgt * x.w;
-      }
-    }
-  }
-  const float inv = 1.f / total;
-  bf16* out = o + (plane / heads) * o_batch + (plane % heads) * o_head + row * o_row;
-#pragma unroll
-  for (int c = 0; c < kPieces; ++c) {
-    const int col = 4 * (lane + 32 * c);
-    if (col < kHeadDim)
-      *reinterpret_cast<uint2*>(out + col) =
-          make_uint2(pack_bf16(acc[c].x * inv, acc[c].y * inv),
-                     pack_bf16(acc[c].z * inv, acc[c].w * inv));
-  }
-}
-
 template <int kHeadDim, bool kCausal>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const Geometry* geometry, float* part_o, float* part_ml,
@@ -598,23 +546,16 @@ int fd_flash_attention_wide_merge(const void* part_o, const void* part_ml, void*
                                   const void* o_strides, int heads, int planes,
                                   int q_len, int rows_pad, int head_dim, int splits,
                                   void* stream) {
-  if (heads < 1 || planes < heads || q_len < 1 || rows_pad < q_len || splits < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto* st = static_cast<const long long*>(o_strides);
-  const long long blocks = (static_cast<long long>(planes) * q_len + 7) / 8;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const auto* po = static_cast<const float*>(part_o);
   const auto* pml = static_cast<const float*>(part_ml);
   auto* ob = static_cast<bf16*>(o);
   const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(blocks);
   switch (head_dim) {
-#define FD_MERGE_CASE(D)                                                          \
-  case D:                                                                         \
-    flash_wide_merge_kernel<D><<<grid, 256, 0, s>>>(po, pml, ob, st[0], st[1],    \
-                                                    st[2], heads, planes, q_len,  \
-                                                    rows_pad, splits);            \
-    break;
+#define FD_MERGE_CASE(D)                                                                  \
+  case D:                                                                                 \
+    return static_cast<int>(fd_flash::launch_merge<D, bf16>(po, pml, ob, st, heads, planes, \
+                                                            q_len, rows_pad, splits, s));
     FD_MERGE_CASE(192)
     FD_MERGE_CASE(256)
     FD_MERGE_CASE(320)
@@ -625,7 +566,6 @@ int fd_flash_attention_wide_merge(const void* part_o, const void* part_ml, void*
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* fd_error_string(int code) {

@@ -44,8 +44,10 @@
 //   output store to q_len, and costs the consumers no address arithmetic.
 //
 // Also here: the host side of the operands' 4-D TMA tensor maps
-// (`Geometry`, `make_map`), shared with flash_attention_wide.cu, whose
-// kernel reuses the softmax, ring and packing helpers below.
+// (`Geometry`, `make_map`, bf16 or fp32), shared with flash_attention_wide.cu
+// and flash_attention_f32.cu, whose kernels reuse the softmax, ring and
+// packing helpers below, and the split merge both of those launch
+// (`flash_wide_merge_kernel`, one template over the output type).
 //
 // Arithmetic (the TPU kernels'): in base 2, scale * log2(e) is folded into
 // q once (the block rescales its Q tile in shared memory) and q is rounded
@@ -494,24 +496,105 @@ struct Geometry {
   uint64_t box[4];
 };
 
-// A bf16 tensor map with the 128-byte swizzle; rows past an extent read as
-// zeros and are not written.
+// A tensor map with the 128-byte swizzle, bf16 (boxes of 64 columns) or
+// fp32 (boxes of 32 columns: 128 bytes either way); rows past an extent
+// read as zeros and are not written.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, const Geometry& g,
-                     int box_rows) {
+                            int box_rows,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const fd_hopper::EncodeTiled encode = fd_hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  if (g.box[0] != kPanelCols || g.box[1] != 1
+  const uint64_t cols = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 32 : kPanelCols;
+  if (g.box[0] != cols || g.box[1] != 1
       || g.box[2] != static_cast<uint64_t>(box_rows) || g.box[3] != 1)
     return cudaErrorInvalidValue;
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(g.box[0]), 1,
                              static_cast<cuuint32_t>(g.box[2]), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), g.dims,
-      g.strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, dtype, 4, const_cast<void*>(base), g.dims, g.strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ void store4(bf16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+
+// The split merge of the flash kernels that split a q block's K/V tiles
+// over blocks (flash_attention_wide.cu in bf16, flash_attention_f32.cu in
+// fp32): o[row] = sum_s 2^(m_s - M) o_s / sum_s 2^(m_s - M) l_s with M =
+// max_s m_s, in split order (the same bits on every call); one warp a row,
+// a lane's columns in 16-byte pieces 128 columns apart, the loads of a few
+// splits in flight at once. part_o [splits, planes, rows_pad, kHeadDim] and
+// part_ml [splits, planes, rows_pad, 2] as the split kernel wrote them; o
+// (TOut) at element strides (batch, head, row), unit columns.
+template <int kHeadDim, typename TOut>
+__global__ void __launch_bounds__(256)
+flash_wide_merge_kernel(const float* __restrict__ part_o,
+                        const float* __restrict__ part_ml, TOut* __restrict__ o,
+                        long long o_batch, long long o_head, long long o_row,
+                        int heads, int planes, int q_len, int rows_pad, int splits) {
+  constexpr int kPieces = (kHeadDim / 4 + 31) / 32;   // 4-column pieces a lane
+  const long long warp = blockIdx.x * 8LL + threadIdx.x / 32;
+  if (warp >= static_cast<long long>(planes) * q_len) return;
+  const int plane = static_cast<int>(warp / q_len), row = static_cast<int>(warp % q_len);
+  const int lane = threadIdx.x % 32;
+  const size_t split_rows = static_cast<size_t>(planes) * rows_pad;
+  const size_t r = static_cast<size_t>(plane) * rows_pad + row;
+  float big = kMask;
+  for (int s = 0; s < splits; ++s) big = fmaxf(big, part_ml[2 * (s * split_rows + r)]);
+  float total = 0.f;
+  float4 acc[kPieces];
+#pragma unroll
+  for (int c = 0; c < kPieces; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int s = 0; s < splits; ++s) {
+    const float2 ml = *reinterpret_cast<const float2*>(part_ml + 2 * (s * split_rows + r));
+    const float wgt = exp2f(ml.x - big);
+    total += wgt * ml.y;
+    const float* src = part_o + (s * split_rows + r) * kHeadDim;
+#pragma unroll
+    for (int c = 0; c < kPieces; ++c) {
+      const int col = 4 * (lane + 32 * c);
+      if (col < kHeadDim) {
+        const float4 x = *reinterpret_cast<const float4*>(src + col);
+        acc[c].x += wgt * x.x;
+        acc[c].y += wgt * x.y;
+        acc[c].z += wgt * x.z;
+        acc[c].w += wgt * x.w;
+      }
+    }
+  }
+  const float inv = 1.f / total;
+  TOut* out = o + (plane / heads) * o_batch + (plane % heads) * o_head + row * o_row;
+#pragma unroll
+  for (int c = 0; c < kPieces; ++c) {
+    const int col = 4 * (lane + 32 * c);
+    if (col < kHeadDim)
+      store4(out + col, make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv,
+                                    acc[c].w * inv));
+  }
+}
+
+// The merge's launch: one warp a row of every plane. Returns a cudaError_t.
+template <int kHeadDim, typename TOut>
+cudaError_t launch_merge(const float* part_o, const float* part_ml, TOut* o,
+                         const long long* o_strides, int heads, int planes, int q_len,
+                         int rows_pad, int splits, cudaStream_t stream) {
+  if (heads < 1 || planes < heads || q_len < 1 || rows_pad < q_len || splits < 1)
+    return cudaErrorInvalidValue;
+  const long long blocks = (static_cast<long long>(planes) * q_len + 7) / 8;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  flash_wide_merge_kernel<kHeadDim, TOut><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      part_o, part_ml, o, o_strides[0], o_strides[1], o_strides[2], heads, planes, q_len,
+      rows_pad, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace fd_flash

@@ -34,6 +34,10 @@ SOURCES = ("flash_attention", "flash_attention_f32", "flash_attention_wide",
            "group_norm", "nf4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source beside NVCC_FLAGS: the fp32 flash kernel's 16 large
+# instances build on every core (on the H100 machine's 8 cores: 14.6 s;
+# its first, unrolled form took 61.5 s without the flag, 23.6 s with it)
+SOURCE_NVCC_FLAGS = {"flash_attention_f32": ("--split-compile=0",)}
 # the host library (`.cc`), built by the host compiler
 HOST_SOURCES = ("host_io",)
 CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
@@ -72,7 +76,7 @@ def _command(name: str, out: str) -> list:
     src = os.path.join(CSRC, _source_file(name))
     if name in HOST_SOURCES:
         return [_cxx(), *CXX_FLAGS, "-o", out, src]
-    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+    return [_nvcc(), *NVCC_FLAGS, *SOURCE_NVCC_FLAGS.get(name, ()), "-o", out, src]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
@@ -93,7 +97,7 @@ def _sources_of(name: str) -> list:
 
 
 def _lib_path(name: str) -> str:
-    flags = CXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    flags = CXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS + SOURCE_NVCC_FLAGS.get(name, ())
     digest = hashlib.sha256(" ".join(flags).encode())
     for fname in _sources_of(name):
         with open(os.path.join(CSRC, fname), "rb") as f:

@@ -6,12 +6,13 @@ the hand-written flash kernels (the ports of `_flash_kernel` and
 `_flash_kernel_bsnd`, which JAX runs at either dtype): bf16 at head dim 64
 or 128 to `csrc/flash_attention.cu`, bf16 at the wide head dims 192 ... 512
 to `csrc/flash_attention_wide.cu`, fp32 at all of them to
-`csrc/flash_attention_f32.cu`. The wide ones serve the single-head d = 512
-VAE mid-attention where JAX's gate admits it (1024 tokens: a 32 x 32
-latent). Everything the JAX package keeps outside Pallas stays plain
-torch, as XLA ran it there: the 77-token cross-attention, the g=2 fusion
-attention, and the VAE mid-attention at larger latents, which goes through
-the chunked online softmax.
+`csrc/flash_attention_f32.cu` (3xTF32 products on the tensor cores, held
+on the CPU through its plain walk `flash_attention_f32_tiled`). The wide
+ones serve the single-head d = 512 VAE mid-attention where JAX's gate
+admits it (1024 tokens: a 32 x 32 latent). Everything the JAX package
+keeps outside Pallas stays plain torch, as XLA ran it there: the 77-token
+cross-attention, the g=2 fusion attention, and the VAE mid-attention at
+larger latents, which goes through the chunked online softmax.
 """
 from __future__ import annotations
 
@@ -146,53 +147,49 @@ def _check_head_dim(what: str, d: int) -> None:
                      f"{_FLASH_HEAD_DIMS + _WIDE_HEAD_DIMS}")
 
 
-def _check_strided_rows(what: str, tensors) -> None:
-    """Raise unless every batch, head and row stride of the wide bf16
-    kernel's operands is a multiple of 8 elements (16 bytes, as its tensor
-    maps need)."""
+def _check_strided_rows(what: str, tensors, multiple: int) -> None:
+    """Raise unless every batch, head and row stride of the strided
+    kernels' operands is a multiple of `multiple` elements: 16 bytes, as
+    their tensor maps need (8 bf16, 4 fp32)."""
     for name, strides in tensors:
-        if any(st % 8 for st in strides):
+        if any(st % multiple for st in strides):
             raise ValueError(f"{what}: {name} strides {strides} are not "
-                             "multiples of 8 elements")
+                             f"multiples of {multiple} elements (16 bytes)")
 
 
-def _flash_f32_launch(q, k, v, out, strides, dims, scale: float,
-                      causal: bool) -> None:
-    """The fp32 kernel over q, k, v and out as `strides` describes them:
-    12 element strides, per operand those of batch, head and row (columns
-    are unit); `dims` = (batch, heads, q_len, kv_len, head_dim)."""
-    _launch(_build.load("flash_attention_f32"), "fd_flash_attention_f32_fwd",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             (ctypes.c_longlong * 12)(*strides), *dims, scale * LOG2E,
-             int(causal)), q.device)
-
-
-def _flash_wide_launch(q, k, v, out, strides, dims, scale: float,
-                       causal: bool) -> None:
-    """The wide bf16 kernel (d = 192 ... 512), arguments as
-    `_flash_f32_launch`'s; every stride a multiple of 8 elements. The
-    operands go to the kernel as TMA tensor maps (`wide_geometry`); where
-    `wide_plan` splits the K/V range, the kernel writes fp32 partials and
-    the merge kernel combines them into `out`."""
-    _check_strided_rows("flash_attention_wide", [
-        (n, tuple(strides[3 * i:3 * i + 3])) for i, n in enumerate("qkvo")])
+def _strided_launch(q, k, v, out, strides, dims, scale: float,
+                    causal: bool) -> None:
+    """The kernels that take element strides, over q, k, v and out as
+    `strides` describes them: the fp32 one, or the wide bf16 one (bf16 at
+    d > 128). `strides` holds 12 element strides, per operand those of
+    batch, head and row (columns are unit), each a multiple of 16 bytes;
+    `dims` = (batch, heads, q_len, kv_len, head_dim). The operands go to
+    the kernel as TMA tensor maps (`wide_geometry`); where the dtype's plan
+    (`f32_plan` or `wide_plan`) splits the K/V range, the kernel writes
+    fp32 partials and the merge kernel combines them into `out`."""
+    source, plan_fn = (("flash_attention_f32", f32_plan) if q.dtype == torch.float32
+                       else ("flash_attention_wide", wide_plan))
+    _check_strided_rows(source, [
+        (n, tuple(strides[3 * i:3 * i + 3])) for i, n in enumerate("qkvo")],
+        16 // q.element_size())
     b, h, q_len, kv_len, d = dims
-    plan = wide_plan(b, h, q_len, kv_len, d, causal, sms=_sm_count(q.device))
-    parts = _wide_fwd_launch(q, k, v, out, strides, dims, scale, causal, plan)
+    plan = plan_fn(b, h, q_len, kv_len, d, causal, sms=_sm_count(q.device))
+    parts = _wide_fwd_launch(q, k, v, out, strides, dims, scale, causal, plan,
+                             source=source)
     if parts is not None:
-        _wide_merge_launch(*parts, out, strides[9:12], h, q_len)
-        _build.launches["flash_attention_wide_merge"] += 1
+        _wide_merge_launch(*parts, out, strides[9:12], h, q_len, source=source)
+        _build.launches[f"{source}_merge"] += 1
 
 
 def _wide_fwd_launch(q, k, v, out, strides, dims, scale: float, causal: bool,
-                     plan: WidePlan):
-    """The wide kernel's launch under `plan`: writes `out`, or with more
-    than one split returns the fp32 partials (part_o, part_ml) it wrote
-    into buffers allocated here."""
+                     plan: WidePlan, source: str = "flash_attention_wide"):
+    """The launch under `plan` of the split kernel of `source` (the wide
+    bf16 one, or with "flash_attention_f32" the fp32 one): writes `out`,
+    or with more than one split returns the fp32 partials (part_o,
+    part_ml) it wrote into buffers allocated here."""
     b, h, q_len, kv_len, d = dims
-    geometry = _geometry_argument(wide_geometry(tuple(strides), tuple(dims)))
+    geometry = _geometry_argument(wide_geometry(tuple(strides), tuple(dims),
+                                                q.element_size()))
     parts = None
     rows = plan.q_blocks * plan.block_q
     if plan.splits > 1:
@@ -200,7 +197,7 @@ def _wide_fwd_launch(q, k, v, out, strides, dims, scale: float, causal: bool,
                              device=q.device),
                  torch.empty((plan.splits, b * h, rows, 2), dtype=torch.float32,
                              device=q.device))
-    _launch(_build.load("flash_attention_wide"), "fd_flash_attention_wide_fwd",
+    _launch(_build.load(source), f"fd_{source}_fwd",
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geometry,
@@ -210,21 +207,17 @@ def _wide_fwd_launch(q, k, v, out, strides, dims, scale: float, causal: bool,
 
 
 def _wide_merge_launch(part_o, part_ml, out, out_strides, heads: int,
-                       q_len: int) -> None:
-    """The merge kernel: ``[splits, planes, rows, d]`` partials into bf16
-    `out` at element strides (batch, head, row)."""
+                       q_len: int, source: str = "flash_attention_wide") -> None:
+    """The merge kernel (`flash_wide_merge_kernel`, instanced in `source`
+    for its output dtype): ``[splits, planes, rows, d]`` partials into
+    `out` (bf16, or fp32 from "flash_attention_f32") at element strides
+    (batch, head, row)."""
     splits, planes, rows, d = part_o.shape
-    _launch(_build.load("flash_attention_wide"), "fd_flash_attention_wide_merge",
+    _launch(_build.load(source), f"fd_{source}_merge",
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
             (part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
              (ctypes.c_longlong * 3)(*out_strides), heads, planes, q_len, rows, d,
              splits), out.device)
-
-
-def _strided_launch(dtype):
-    """The launch of the kernels that take element strides: the fp32 one,
-    or the wide bf16 one (bf16 at d > 128)."""
-    return _flash_f32_launch if dtype == torch.float32 else _flash_wide_launch
 
 
 def _strided_counter(dtype, d: int, packed: bool) -> str:
@@ -246,26 +239,29 @@ class TmaGeometry(NamedTuple):
 
 
 def _tma_geometry(d, heads, rows, batches, head_stride, row_stride,
-                  batch_stride, box_rows) -> TmaGeometry:
-    """Strides in bf16 elements. A dimension of extent 1 is given the
-    stride of a contiguous tensor (its own never enters an address); every
-    other one must be a positive multiple of 16 bytes, as TMA demands."""
+                  batch_stride, box_rows, esize: int = 2) -> TmaGeometry:
+    """Strides in elements of `esize` bytes (2: bf16, boxes of PANEL_COLS
+    columns; 4: fp32, boxes of 32 columns, 128 bytes either way). A
+    dimension of extent 1 is given the stride of a contiguous tensor (its
+    own never enters an address); every other one must be a positive
+    multiple of 16 bytes, as TMA demands."""
     if d % PANEL_COLS:
         raise ValueError(f"head dim {d} is not a multiple of {PANEL_COLS}")
+    per16 = 16 // esize
     strides = []
     for extent, stride, dense in ((heads, head_stride, d),
                                   (rows, row_stride, heads * d),
                                   (batches, batch_stride, rows * heads * d)):
         if extent == 1:
             stride = dense
-        if stride <= 0 or stride % 8 or 2 * stride >= 1 << 40:
+        if stride <= 0 or stride % per16 or esize * stride >= 1 << 40:
             raise ValueError(f"stride {stride} of an extent of {extent} is not a "
-                             "positive multiple of 8 elements below 2^39")
-        strides.append(2 * stride)
+                             f"positive multiple of {per16} elements below 2^40 bytes")
+        strides.append(esize * stride)
     dims = (d, heads, rows, batches)
     if min(dims) < 1 or max(dims) > 1 << 32 or not 1 <= box_rows <= 256:
         raise ValueError(f"dims {dims}, box rows {box_rows}")
-    return TmaGeometry(dims, tuple(strides), (PANEL_COLS, 1, box_rows, 1))
+    return TmaGeometry(dims, tuple(strides), (128 // esize, 1, box_rows, 1))
 
 
 @functools.lru_cache(maxsize=256)
@@ -316,27 +312,56 @@ class WidePlan(NamedTuple):
     blocks: int
 
 
-@functools.lru_cache(maxsize=256)
-def wide_plan(batch: int, heads: int, q_len: int, kv_len: int, d: int,
-              causal: bool = False, sms: int = H100_SMS,
-              splits: Optional[int] = None) -> WidePlan:
-    """The wide kernel's launch for one shape. Where the q blocks of all
-    planes leave SMs idle, the K/V tiles are split across blocks: as many
-    splits as one wave of one block an SM holds (a block more than the SMs
-    would run alone in a second wave) while each walks at least
-    MIN_SPLIT_TILES tiles, rounded so that the splits hold equal tile
-    counts and none is empty (under the causal mask a q block splits its
-    own live tiles the same way, and late splits may hold none). `splits`
-    forces a count (tests, benchmarks), rounded the same way."""
-    block_q = WIDE_ROWS * (1 if d > 256 else 2)
+def _split_plan(block_q: int, slots: int, batch: int, heads: int, q_len: int,
+                kv_len: int, splits: Optional[int]) -> WidePlan:
+    """q blocks of `block_q` rows over K/V tiles of WIDE_ROWS keys; where
+    the q blocks of all planes leave some of the `slots` blocks one wave
+    holds idle, the K/V tiles are split across blocks: as many splits as
+    that wave holds while each walks at least MIN_SPLIT_TILES tiles,
+    rounded so that the splits hold equal tile counts and none is empty
+    (under the causal mask a q block splits its own live tiles the same
+    way, and late splits may hold none). `splits` forces a count, rounded
+    the same way."""
     q_blocks = -(-q_len // block_q)
     tiles = -(-kv_len // WIDE_ROWS)
     items = q_blocks * batch * heads
     if splits is None:
-        splits = max(1, min(sms // items, tiles // MIN_SPLIT_TILES))
+        splits = max(1, min(slots // items, tiles // MIN_SPLIT_TILES))
     per = -(-tiles // max(1, min(splits, tiles)))
     splits = -(-tiles // per)
     return WidePlan(block_q, q_blocks, tiles, splits, per, items * splits)
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(batch: int, heads: int, q_len: int, kv_len: int, d: int,
+              causal: bool = False, sms: int = H100_SMS,
+              splits: Optional[int] = None) -> WidePlan:
+    """The wide bf16 kernel's launch for one shape (`_split_plan`): one
+    block an SM, so a wave is `sms` blocks (a block more would run alone
+    in a second wave). `splits` forces a count (tests, benchmarks)."""
+    block_q = WIDE_ROWS * (1 if d > 256 else 2)
+    return _split_plan(block_q, sms, batch, heads, q_len, kv_len, splits)
+
+
+# The fp32 kernel (`csrc/flash_attention_f32.cu`): 64 q rows a block and
+# K/V tiles of 64 keys at every head dim; two blocks an SM at d <= 128
+# (`F32Layout::kBlocksPerSm`), one above.
+F32_ROWS = WIDE_ROWS
+
+
+def f32_blocks_per_sm(d: int) -> int:
+    return 2 if d <= 128 else 1
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plan(batch: int, heads: int, q_len: int, kv_len: int, d: int,
+             causal: bool = False, sms: int = H100_SMS,
+             splits: Optional[int] = None) -> WidePlan:
+    """The fp32 kernel's launch for one shape (`_split_plan`): a wave is
+    the blocks all SMs hold at once. `splits` forces a count (tests,
+    benchmarks)."""
+    return _split_plan(F32_ROWS, sms * f32_blocks_per_sm(d), batch, heads, q_len,
+                       kv_len, splits)
 
 
 @functools.lru_cache(maxsize=None)
@@ -345,10 +370,11 @@ def _sm_count(device) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def wide_geometry(strides: tuple, dims: tuple) -> tuple:
-    """q, k, v, o as the wide kernel's tensor maps see them, from the 12
-    element strides (batch, head, row of each) and dims (batch, heads,
-    q_len, kv_len, d) the strided launch takes. Where every operand's
+def wide_geometry(strides: tuple, dims: tuple, esize: int = 2) -> tuple:
+    """q, k, v, o as the strided kernels' tensor maps see them (the wide
+    bf16 one's, or at `esize` 4 the fp32 one's), from the 12 element
+    strides (batch, head, row of each) and dims (batch, heads, q_len,
+    kv_len, d) the strided launch takes. Where every operand's
     planes lie evenly apart (contiguous [B, H, S, d], or one head), the
     heads fold into the batch dim, as `bhsd_geometry` has it; otherwise
     (packed rows, a head d columns into a row) each keeps its own."""
@@ -359,9 +385,9 @@ def wide_geometry(strides: tuple, dims: tuple) -> tuple:
     for (sb, sh, sr), rows in zip(ops, (q_len, kv_len, kv_len, q_len)):
         if fold:
             out.append(_tma_geometry(d, 1, rows, b * h, d, sr, sh if h > 1 else sb,
-                                     WIDE_ROWS))
+                                     WIDE_ROWS, esize))
         else:
-            out.append(_tma_geometry(d, h, rows, b, sh, sr, sb, WIDE_ROWS))
+            out.append(_tma_geometry(d, h, rows, b, sh, sr, sb, WIDE_ROWS, esize))
     return tuple(out)
 
 
@@ -424,6 +450,120 @@ def wide_attention_split(q, k, v, scale: float, causal: bool, plan: WidePlan):
     return merged.reshape(b, h, -1, d)[:, :, :q_len].to(q.dtype)
 
 
+def tf32_round(x):
+    """fp32 `x` rounded to TF32 as `cvt.rna.tf32.f32` does: to nearest, ties
+    away from zero, the 13 low mantissa bits cleared (inf and NaN kept)."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32(x):
+    """(big, small): big = tf32(x), small = tf32(x - big), both fp32
+    tensors of TF32 values (the fp32 kernel's operand split)."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def tf32_matmul(a, b, products: int = 3):
+    """a @ b as the fp32 kernel's tensor cores take it: with products=3,
+    3xTF32, small(a).big(b) + big(a).small(b) + big(a).big(b) summed in
+    that order in fp32 (each TF32 product is exact in fp32); with
+    products=1, big(a).big(b) alone (single TF32)."""
+    ab, as_ = split_tf32(a)
+    bb, bs = split_tf32(b)
+    if products == 1:
+        return torch.matmul(ab, bb)
+    return torch.matmul(as_, bb) + torch.matmul(ab, bs) + torch.matmul(ab, bb)
+
+
+def f32_partials(q, k, v, scale: float, causal: bool, plan: WidePlan, *,
+                 products: int = 3, visited=None):
+    """The fp32 kernel's blocks in plain PyTorch, for ``[B, H, S, d]`` fp32
+    operands: for split s of each q block of F32_ROWS rows, over its K/V
+    tiles of WIDE_ROWS keys (rows past kv_len zero, as TMA fills them), q
+    scaled by scale * log2 e in fp32, scores by `tf32_matmul` (at d > 128
+    the two column halves' score halves added, as the block's two halves
+    of warps do), columns past kv_len and above the causal diagonal
+    (top-left) `DEFAULT_MASK_VALUE`, the online softmax in base 2, p kept
+    in fp32 and p.v by `tf32_matmul`. Returns part_o ``[splits, B*H, rows,
+    d]`` (unnormalised) and part_ml ``[splits, B*H, rows, 2]`` (max, sum),
+    padded rows included (a split with no tile: m masked, l and o 0).
+    `visited`, a list, gets one ``(q0, split, k0)`` per tile a block
+    walks."""
+    b, h, q_len, d = q.shape
+    kv_len = k.shape[2]
+    rows = plan.q_blocks * plan.block_q
+    tile = WIDE_ROWS
+    halves = 2 if d > 128 else 1
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qs = torch.zeros((b * h, rows, d), **f32)
+    qs[:, :q_len] = q.reshape(b * h, q_len, d).float() * (scale * LOG2E)
+    pad = plan.kv_tiles * tile
+    ks = torch.zeros((b * h, pad, d), **f32)
+    vs = torch.zeros((b * h, pad, d), **f32)
+    ks[:, :kv_len] = k.reshape(b * h, kv_len, d).float()
+    vs[:, :kv_len] = v.reshape(b * h, kv_len, d).float()
+    part_o = torch.zeros((plan.splits, b * h, rows, d), **f32)
+    part_ml = torch.zeros((plan.splits, b * h, rows, 2), **f32)
+    part_ml[..., 0] = DEFAULT_MASK_VALUE
+    cut = d // halves
+    for qb in range(plan.q_blocks):
+        r0 = qb * plan.block_q
+        qb_rows = torch.arange(r0, r0 + plan.block_q, device=q.device)
+        qg = qs[:, r0:r0 + plan.block_q]
+        n = kv_tiles(r0, kv_len, causal, plan.block_q, tile)
+        for split in range(plan.splits):
+            t0, t1 = split * plan.tiles_per_split, min((split + 1) * plan.tiles_per_split, n)
+            acc = torch.zeros((b * h, plan.block_q, d), **f32)
+            m = torch.full((b * h, plan.block_q, 1), DEFAULT_MASK_VALUE, **f32)
+            l = torch.zeros((b * h, plan.block_q, 1), **f32)
+            for t in range(t0, t1):
+                k0 = t * tile
+                if visited is not None:
+                    visited.append((r0, split, k0))
+                kt, vt = ks[:, k0:k0 + tile], vs[:, k0:k0 + tile]
+                s = tf32_matmul(qg[..., :cut], kt[..., :cut].transpose(-1, -2), products)
+                if halves == 2:
+                    s = s + tf32_matmul(qg[..., cut:], kt[..., cut:].transpose(-1, -2),
+                                        products)
+                cols = torch.arange(k0, k0 + tile, device=q.device)
+                keep = (cols < kv_len)[None, :]
+                if causal:
+                    keep = keep & (cols[None, :] <= qb_rows[:, None])
+                s = torch.where(keep, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp2(s - m_new)
+                alpha = torch.exp2(m - m_new)
+                l = alpha * l + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + tf32_matmul(p, vt, products)
+                m = m_new
+            part_o[split, :, r0:r0 + plan.block_q] = acc
+            part_ml[split, :, r0:r0 + plan.block_q, 0] = m[..., 0]
+            part_ml[split, :, r0:r0 + plan.block_q, 1] = l[..., 0]
+    return part_o, part_ml
+
+
+def flash_attention_f32_tiled(q, k, v, scale: float, causal: bool = False, *,
+                              plan: Optional[WidePlan] = None, products: int = 3,
+                              visited=None):
+    """The fp32 kernel's schedule and arithmetic in plain PyTorch, for
+    tests: ``[B, H, S, d]`` fp32 operands through `f32_partials` under
+    `plan` (default: `f32_plan` on the card's SM count), then o = acc *
+    (1 / l) for one split or `merge_wide_partials` (the merge kernel's
+    plain version) for more. `products=1` takes single-TF32 products."""
+    b, h, q_len, d = q.shape
+    if plan is None:
+        plan = f32_plan(b, h, q_len, k.shape[2], d, causal)
+    part_o, part_ml = f32_partials(q, k, v, scale, causal, plan, products=products,
+                                   visited=visited)
+    if plan.splits == 1:
+        merged = part_o[0] * (1.0 / part_ml[0, ..., 1:])
+    else:
+        merged = merge_wide_partials(part_o, part_ml)
+    return merged.reshape(b, h, -1, d)[:, :, :q_len]
+
+
 @functools.lru_cache(maxsize=256)
 def _geometry_argument(geometries: tuple):
     """q, k, v, o geometries as the C entry points read them: per operand
@@ -484,8 +624,8 @@ def _flash_attention_launch(q, k, v, scale: float, causal: bool):
     out = torch.empty_like(q)
     if q.dtype == torch.float32 or d in _WIDE_HEAD_DIMS:
         strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
-        _strided_launch(q.dtype)(q, k, v, out, strides,
-                                 (b, h, q_len, kv_len, d), scale, causal)
+        _strided_launch(q, k, v, out, strides,
+                        (b, h, q_len, kv_len, d), scale, causal)
         _build.launches[_strided_counter(q.dtype, d, False)] += 1
         return out
     geometry = _geometry_argument((
@@ -681,8 +821,8 @@ def _flash_packed_launch(q, k, v, heads: int, scale: float):
     if q.dtype == torch.float32 or d in _WIDE_HEAD_DIMS:
         # batch, head, row: a head is d columns into a packed row
         strides = [x for t in (q, k, v, out) for x in (t.stride(0), d, t.stride(1))]
-        _strided_launch(q.dtype)(q, k, v, out, strides,
-                                 (b, heads, sq, skv, d), scale, False)
+        _strided_launch(q, k, v, out, strides,
+                        (b, heads, sq, skv, d), scale, False)
         _build.launches[_strided_counter(q.dtype, d, True)] += 1
         return out
     geometry = _geometry_argument(tuple(

@@ -1,9 +1,10 @@
 """Times the wide head-dim bf16 flash kernel (`csrc/flash_attention_wide.cu`)
-of one checkout of the port, so that two versions of the kernel can be
-timed in one run on one card.
+of one checkout of the port, or with `--dtype float32` the fp32 flash
+kernel (`csrc/flash_attention_f32.cu`), so that two versions of a kernel
+can be timed in one run on one card.
 
     python faithdiff_tpu_torch/scripts/bench_flash_wide.py [--tree DIR]
-        [--label NAME]
+        [--label NAME] [--dtype float32]
 
 `faithdiff_tpu_torch` is imported from `--tree DIR` (default: this
 checkout), say an older commit unpacked with `git archive`; the timing
@@ -17,6 +18,14 @@ one (`wide_plan`), whether two calls gave the same bits, and the largest
 error against the plain version (`chunked_attention` at 16,384 tokens,
 whose time is also given). Exits nonzero without a card, or when a shape
 is out of tolerance (1e-2 + 8e-3 |ref|) or differs between two calls.
+
+`--dtype float32` times instead the fp32 kernel's rows (F32_SHAPES: the
+trainer's d = 64 attentions at a 1024 px tile, the LLaMA's causal d = 128
+prefill, the packed layout, and the wide shapes above at fp32), TF32 off,
+each beside SDPA in fp32 with the bound at the 3xTF32 rate (495 / 3
+TFLOP/s: `chip_smoke.PEAK_TF32X3_FLOPS`), within 2e-5 * max|ref| of the
+plain version (`f32_flash` lines; the split plan where the tree has
+`f32_plan`).
 
 `--splits N ...` (this checkout only) times instead the short shapes
 (SPLIT_SHAPES) with the split count forced to each N (`wide_plan(...,
@@ -38,6 +47,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 SHAPES = [((1, 1, 1024, 512), None), ((1, 1, 1024, 256), None),
           ((2, 4, 2048, 256), None), ((1, 1, 16384, 512), None),
           ((1, 1024, 512), 1)]
+
+
+# (shape, heads or None, causal): the fp32 kernel's timed rows
+F32_SHAPES = [((2, 10, 4096, 64), None, False), ((2, 20, 1024, 64), None, False),
+              ((1, 40, 1024, 128), None, True), ((2, 4096, 640), 10, False),
+              ((1, 1, 1024, 512), None, False), ((1, 1, 1024, 256), None, False),
+              ((2, 4, 2048, 256), None, False), ((1, 1024, 512), 1, False)]
 
 
 # the VAE's attention at 1, 2 and 4 tiles of 1024 tokens, and d = 256
@@ -80,22 +96,23 @@ def split_sweep(smoke, torch, A, counts) -> list:
     return rows
 
 
-def bench_shape(smoke, torch, A, shape, heads) -> dict:
+def bench_shape(smoke, torch, A, shape, heads, causal=False, dtype=None) -> dict:
     import torch.nn.functional as F
 
     from faithdiff_tpu_torch.utils.profiling import time_ms
 
+    f32 = dtype == torch.float32
     gen = torch.Generator(device="cuda").manual_seed(sum(shape))
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype or torch.bfloat16)
                for _ in range(3))
     if heads is None:
         b, h, s, d = shape
-        kernel = lambda: A.flash_attention(q, k, v, d ** -0.5)  # noqa: E731
+        kernel = lambda: A.flash_attention(q, k, v, d ** -0.5, causal)  # noqa: E731
         views = (q, k, v)
         if s > 4096:
             plain = lambda: A.chunked_attention(q, k, v, d ** -0.5)  # noqa: E731
         else:
-            plain = lambda: A.attention_reference(q, k, v, d ** -0.5)  # noqa: E731
+            plain = lambda: A.attention_reference(q, k, v, d ** -0.5, causal)  # noqa: E731
     else:
         (b, s, f), h = shape, heads
         d = f // h
@@ -106,20 +123,25 @@ def bench_shape(smoke, torch, A, shape, heads) -> dict:
     torch.cuda.synchronize()
     ref = plain()
     err = (out.float() - ref.float()).abs()
-    flops, nbytes = 4 * b * h * d * s * s, 4 * b * h * s * d * 2
-    bound_ms, bound_by = smoke.bound(flops, nbytes, smoke.PEAK_BF16_FLOPS)
+    pairs = s * (s + 1) / 2 if causal else s * s
+    flops, nbytes = 4 * b * h * d * pairs, 4 * b * h * s * d * q.element_size()
+    bound_ms, bound_by = smoke.bound(
+        flops, nbytes, smoke.PEAK_TF32X3_FLOPS if f32 else smoke.PEAK_BF16_FLOPS)
     ms = smoke.graph_ms(torch, kernel)
-    row = dict(shape=list(shape), heads=heads, ms=ms,
+    row = dict(shape=list(shape), heads=heads, causal=causal, ms=ms,
                library_ms=smoke.graph_ms(
-                   torch, lambda: F.scaled_dot_product_attention(*views, scale=d ** -0.5)),
+                   torch, lambda: F.scaled_dot_product_attention(
+                       *views, is_causal=causal, scale=d ** -0.5)),
                bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
                ms_over_bound=ms / bound_ms, max_abs_err=float(err.max()),
-               in_tol=bool((err <= 1e-2 + 8e-3 * ref.float().abs()).all()),
+               in_tol=(float(err.max()) <= 2e-5 * float(ref.abs().max()) if f32 else
+                       bool((err <= 1e-2 + 8e-3 * ref.float().abs()).all())),
                same_bits=bool(torch.equal(out, again)))
     if s > 4096:
         row["chunked_ms"] = time_ms(plain, 3, 1)
-    if hasattr(A, "wide_plan"):
-        plan = A.wide_plan(b, h, s, s, d, sms=A._sm_count(q.device))
+    plan_fn = getattr(A, "f32_plan" if f32 else "wide_plan", None)
+    if plan_fn is not None and (f32 or d > 128):
+        plan = plan_fn(b, h, s, s, d, causal, sms=A._sm_count(q.device))
         row.update(splits=plan.splits, blocks=plan.blocks)
     del q, k, v, out, again, ref, err
     torch.cuda.empty_cache()
@@ -131,6 +153,7 @@ def main() -> int:
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--splits", type=int, nargs="+")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -152,11 +175,19 @@ def main() -> int:
         return 1
     print(f"card: {smoke.card_line()}; tree {args.label}", flush=True)
     _build.build_all()
-    smoke.print_ptxas("flash_attention_wide", _build.build_log.get("flash_attention_wide", ""))
+    source = "flash_attention_f32" if args.dtype == "float32" else "flash_attention_wide"
+    smoke.print_ptxas(source, _build.build_log.get(source, ""))
     if args.splits:
         split_sweep(smoke, torch, A, args.splits)
         return 0
     ok = True
+    if args.dtype == "float32":
+        with smoke.tf32_off(torch):
+            for shape, heads, causal in F32_SHAPES:
+                row = bench_shape(smoke, torch, A, shape, heads, causal, torch.float32)
+                print("f32_flash", json.dumps(dict(row, label=args.label)), flush=True)
+                ok = ok and row["in_tol"] and row["same_bits"]
+        return 0 if ok else 1
     for shape, heads in SHAPES:
         row = bench_shape(smoke, torch, A, shape, heads)
         print("flash_wide", json.dumps(dict(row, label=args.label)), flush=True)

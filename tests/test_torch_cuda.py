@@ -173,6 +173,90 @@ def test_flash_attention_packed_f32_matches_plain(cuda, no_tf32, b, heads, sq, s
     assert _within_f32(out, einsum_bsnd(q.contiguous(), k, v, heads, d ** -0.5))
 
 
+@pytest.mark.parametrize("splits", [1, 2, None], ids=["1split", "2splits", "planned"])
+@pytest.mark.parametrize("layout,causal", [("bhsd", False), ("bhsd", True),
+                                           ("packed", False)])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 448, 512])
+def test_flash_attention_f32_splits_same_bits(cuda, no_tf32, monkeypatch, d, layout,
+                                              causal, splits):
+    """The fp32 kernel at one split, two and its plan's count (forced
+    through `f32_plan`), ragged BHSD lengths, causal, and packed column
+    slices: within 2e-5 * max|ref| of the plain version, the same bits on
+    a second call, and the merge launched exactly when the K/V range is
+    split."""
+    monkeypatch.setattr(A, "f32_plan", functools.partial(A.f32_plan, splits=splits))
+    g = torch.Generator(device=cuda).manual_seed(d + (splits or 0))
+    if layout == "bhsd":
+        b, h, sq, skv = (1, 2, 1030, 1030) if causal else (2, 2, 1000, 1100)
+        q = torch.randn((b, h, sq, d), generator=g, device=cuda)
+        k, v = (torch.randn((b, h, skv, d), generator=g, device=cuda) for _ in range(2))
+        run = lambda: flash_attention(q, k, v, d ** -0.5, causal)  # noqa: E731
+        ref = attention_reference(q, k, v, d ** -0.5, causal)
+        counter = A._strided_counter(torch.float32, d, False)
+    else:
+        b, h, sq, skv, f = 2, 2, 1030, 1100, 2 * d
+        q = torch.randn((b, sq, 3 * f), generator=g, device=cuda)[..., f:2 * f]
+        k, v = torch.randn((b, skv, 2 * f), generator=g, device=cuda).split(f, dim=-1)
+        run = lambda: flash_attention_packed(q, k, v, h, d ** -0.5)  # noqa: E731
+        ref = einsum_bsnd(q.contiguous(), k.contiguous(), v.contiguous(), h, d ** -0.5)
+        counter = A._strided_counter(torch.float32, d, True)
+    plan = A.f32_plan(b, h, sq, skv, d, causal)
+    assert splits is None or plan.splits == splits
+    _build.launches.clear()
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    merged = 2 if plan.splits > 1 else 0
+    assert dict(_build.launches) == {counter: 2, **(
+        {"flash_attention_f32_merge": merged} if merged else {})}
+    assert _within_f32(out, ref)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("splits", [1, 2, None], ids=["1split", "2splits", "planned"])
+@pytest.mark.parametrize("shape", [(2, 1, 1024, 512), (1, 1, 1024, 512)], ids=str)
+def test_flash_attention_f32_path_shapes_splits_same_bits(cuda, no_tf32, monkeypatch,
+                                                         shape, splits):
+    """The fp32 kernel at the d = 512 attentions of its paths (the 256 px
+    trainer's batch of 2, planned at 4 splits, and the VAE's one), at one
+    split, two and the plan's count: within 2e-5 * max|ref| of the plain
+    version and the same bits on a second call."""
+    monkeypatch.setattr(A, "f32_plan", functools.partial(A.f32_plan, splits=splits))
+    g = torch.Generator(device=cuda).manual_seed(shape[0] + (splits or 0))
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    b, h, s, d = shape
+    plan = A.f32_plan(b, h, s, s, d)
+    assert splits is None or plan.splits == splits
+    _build.launches.clear()
+    out, again = flash_attention(q, k, v, d ** -0.5), flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    merged = 2 if plan.splits > 1 else 0
+    assert dict(_build.launches) == {"flash_attention_f32_wide_fwd": 2, **(
+        {"flash_attention_f32_merge": merged} if merged else {})}
+    assert _within_f32(out, attention_reference(q, k, v, d ** -0.5))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("d", [64, 512])
+def test_flash_attention_f32_entry_refuses_rows_off_its_layout(cuda, d, splits):
+    """The fp32 entry point takes the partial buffers' rows a plane only as
+    its 64-row q blocks give them: one q block more or fewer is refused
+    before anything launches, with one split or eight."""
+    b, h, s = 1, 1, 1024
+    q, k, v = (torch.randn((b, h, s, d), device=cuda) for _ in range(3))
+    out = torch.empty_like(q)
+    strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
+    plan = A.f32_plan(b, h, s, s, d, splits=splits)
+    launch = functools.partial(A._wide_fwd_launch, q, k, v, out, strides,
+                               (b, h, s, s, d), d ** -0.5, False,
+                               source="flash_attention_f32")
+    launch(plan)
+    torch.cuda.synchronize()
+    for q_blocks in (plan.q_blocks - 1, plan.q_blocks + 1):
+        with pytest.raises(RuntimeError, match="fd_flash_attention_f32_fwd"):
+            launch(plan._replace(q_blocks=q_blocks))
+
+
 def _packed(cuda, b, sq, skv, f, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
     return (torch.randn((b, sq, f), generator=g, device=cuda).bfloat16(),
@@ -223,12 +307,15 @@ WIDE_COUNTER = {torch.bfloat16: "flash_attention_wide", torch.float32: "flash_at
 
 
 def _wide_merges(dtype, b, h, sq, skv, d, causal) -> dict:
-    """The merge launch a wide call adds: the bf16 kernel's, where its plan
-    splits the K/V range."""
-    plan = A.wide_plan(b, h, sq, skv, d, causal, sms=A._sm_count(torch.device("cuda")))
-    if dtype == torch.bfloat16 and plan.splits > 1:
-        return {"flash_attention_wide_merge": 1}
-    return {}
+    """The merge launch a wide call adds where its kernel's plan splits the
+    K/V range: the bf16 kernel's (`wide_plan`) or the fp32 one's
+    (`f32_plan`)."""
+    sms = A._sm_count(torch.device("cuda"))
+    if dtype == torch.bfloat16:
+        plan, name = A.wide_plan(b, h, sq, skv, d, causal, sms=sms), "flash_attention_wide_merge"
+    else:
+        plan, name = A.f32_plan(b, h, sq, skv, d, causal, sms=sms), "flash_attention_f32_merge"
+    return {name: 1} if plan.splits > 1 else {}
 
 
 @pytest.mark.parametrize("splits", [1, 2, None], ids=["1split", "2splits", "planned"])

@@ -135,16 +135,17 @@ def strided_attention(q, k, v, out, strides, dims, scale, causal):
 
 @pytest.fixture
 def card_free_launch(monkeypatch):
-    """The launch path with the device check and both strided entry points
-    replaced; the wide bf16 one keeps its stride check."""
-    def wide(q, k, v, out, strides, dims, scale, causal):
-        A._check_strided_rows("flash_attention_wide", [
-            (n, tuple(strides[3 * i:3 * i + 3])) for i, n in enumerate("qkvo")])
+    """The launch path with the device check and the strided launch
+    replaced; the stand-in keeps the launch's stride check (16 bytes)."""
+    def launch(q, k, v, out, strides, dims, scale, causal):
+        what = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention_wide"
+        A._check_strided_rows(what, [
+            (n, tuple(strides[3 * i:3 * i + 3])) for i, n in enumerate("qkvo")],
+            16 // q.element_size())
         strided_attention(q, k, v, out, strides, dims, scale, causal)
 
     monkeypatch.setattr(A, "_check_kernel_inputs", lambda *a: None)
-    monkeypatch.setattr(A, "_flash_f32_launch", strided_attention)
-    monkeypatch.setattr(A, "_flash_wide_launch", wide)
+    monkeypatch.setattr(A, "_strided_launch", launch)
     _build.launches.clear()
 
 
