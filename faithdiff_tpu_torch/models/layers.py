@@ -16,6 +16,7 @@ import torch.utils.checkpoint
 from torch.nn.utils import parametrize
 
 from ..ops.groupnorm import group_norm
+from ..utils import profiling
 
 
 def maybe_checkpoint(enabled: bool, fn, *args):
@@ -30,14 +31,22 @@ def maybe_checkpoint(enabled: bool, fn, *args):
 
 
 class _Upcast(nn.Module):
-    """Parametrization that reads a stored fp8 tensor in `dtype`."""
+    """Parametrization that reads a stored fp8 tensor in `dtype`. While the
+    recorder is on it counts each read (`fp8.upcasts`), and under a
+    profiler labels the read's kernels with the range `fp8_upcast`."""
 
     def __init__(self, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
 
     def forward(self, stored: torch.Tensor) -> torch.Tensor:
-        return stored.to(self.dtype)
+        if not profiling.recording_on():
+            return stored.to(self.dtype)
+        # counted into the span open around the call (the pipeline's `unet`)
+        with profiling.leaf("fp8_upcast"):
+            out = stored.to(self.dtype)
+        profiling.count("fp8.upcasts")
+        return out
 
 
 @torch.no_grad()

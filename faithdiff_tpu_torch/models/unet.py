@@ -112,7 +112,8 @@ class UNet2DConditionModel(nn.Module):
         added_time_ids [B, 6]; input_embedding [B, 512, H, W] LQ features.
         Returns eps [B, 4, H, W]."""
         cfg = self.config
-        dtype = self.conv_in.weight.dtype
+        # the bias's: an fp8-stored weight is upcast at every read
+        dtype = self.conv_in.bias.dtype
         b = sample.shape[0]
         timestep = torch.as_tensor(timestep, device=sample.device)
         if timestep.ndim == 0:

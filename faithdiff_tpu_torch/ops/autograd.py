@@ -12,14 +12,16 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import span
+
 
 class KernelWithPlainBackward(torch.autograd.Function):
     """Forward: `forward(*tensors, **kwargs)` (the kernel launch). Backward:
     autograd of `plain(*tensors, **kwargs)` over the saved inputs, in the
     inputs' own dtypes with autocast off, so the plain version's fp32
     logits and statistics are what is differentiated. Entries of `tensors`
-    may be None (an absent optional input). A profiler sees the backward
-    as the range `plain_backward:<plain's name>`."""
+    may be None (an absent optional input). The backward is the span
+    `plain_backward:<plain's name>` (`utils.profiling.span`)."""
 
     @staticmethod
     def forward(ctx, forward: Callable, plain: Callable, kwargs: dict,
@@ -33,8 +35,7 @@ class KernelWithPlainBackward(torch.autograd.Function):
         needs = ctx.needs_input_grad[3:]
         inputs = [None if t is None else t.detach().requires_grad_(need)
                   for t, need in zip(ctx.saved_tensors, needs)]
-        with torch.profiler.record_function(
-                f"plain_backward:{ctx.plain.__name__}"):
+        with span(f"plain_backward:{ctx.plain.__name__}"):
             with torch.enable_grad(), torch.autocast(grad.device.type,
                                                      enabled=False):
                 out = ctx.plain(*inputs, **ctx.kwargs)

@@ -34,6 +34,7 @@ from ..models.layers import store_fp8_
 from ..models.unet import UNet2DConditionModel
 from ..models.vae import AutoencoderKL, DenoiseEncoder, tiled_apply
 from ..schedulers import DDPMScheduler, EulerDiscreteScheduler
+from ..utils.profiling import span
 from ..utils.quantize import quantize_params_fp8
 from .faithdiff import FaithDiffPipeline
 
@@ -85,28 +86,29 @@ def build_pipeline(
         raise RuntimeError("build_pipeline: device 'cuda' requested but CUDA "
                            "is not available (pass device='cpu' to run on "
                            "the CPU)")
-    with device:
-        unet = UNet2DConditionModel(unet_config)
-        vae = AutoencoderKL(vae_config)
-        denoise_encoder = DenoiseEncoder(denoise_encoder_config)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    for model, state_dict in ((unet, unet_state_dict), (vae, vae_state_dict),
-                              (denoise_encoder, denoise_encoder_state_dict)):
-        if state_dict is None:
-            random_init_(model, generator)
-        else:
-            model.load_state_dict(state_dict, strict=True)
-        model.to(dtype).eval().requires_grad_(False)
-    if use_fp8:
-        store_fp8_(unet, quantize_params_fp8(unet.state_dict(), dtype))
-    return FaithDiffPipeline(
-        unet=unet, vae=vae, denoise_encoder=denoise_encoder,
-        scheduler=EulerDiscreteScheduler(scheduler_config),
-        ddpm_scheduler=DDPMScheduler(scheduler_config),
-        config=pipeline_config,
-        vae_scaling_factor=vae_config.scaling_factor,
-        tile_chunk=tile_chunk, tile_group=tile_group,
-        **_tiled_stages(vae, denoise_encoder, pipeline_config.use_tiled_vae))
+    with span("build_pipeline", use_fp8=use_fp8):
+        with device:
+            unet = UNet2DConditionModel(unet_config)
+            vae = AutoencoderKL(vae_config)
+            denoise_encoder = DenoiseEncoder(denoise_encoder_config)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        for model, state_dict in ((unet, unet_state_dict), (vae, vae_state_dict),
+                                  (denoise_encoder, denoise_encoder_state_dict)):
+            if state_dict is None:
+                random_init_(model, generator)
+            else:
+                model.load_state_dict(state_dict, strict=True)
+            model.to(dtype).eval().requires_grad_(False)
+        if use_fp8:
+            store_fp8_(unet, quantize_params_fp8(unet.state_dict(), dtype))
+        return FaithDiffPipeline(
+            unet=unet, vae=vae, denoise_encoder=denoise_encoder,
+            scheduler=EulerDiscreteScheduler(scheduler_config),
+            ddpm_scheduler=DDPMScheduler(scheduler_config),
+            config=pipeline_config,
+            vae_scaling_factor=vae_config.scaling_factor,
+            tile_chunk=tile_chunk, tile_group=tile_group,
+            **_tiled_stages(vae, denoise_encoder, pipeline_config.use_tiled_vae))
 
 
 def _tiled_stages(vae: AutoencoderKL, denoise_encoder: DenoiseEncoder,

@@ -44,6 +44,7 @@ from ..schedulers import DDPMScheduler, EulerDiscreteScheduler
 from ..utils.color_fix import (adain_color_fix, streaming_color_fix,
                                wavelet_color_fix)
 from ..utils.image import denormalize_from_diffusion, normalize_to_diffusion
+from ..utils.profiling import span
 from .tiling import (compute_tile_layout, gaussian_tile_weights, merge_tiles,
                      split_tiles, tile_position_ids)
 
@@ -169,13 +170,14 @@ class FaithDiffPipeline:
         if self.vae_decode is None:
             self.vae_decode = self.vae.decode
 
+    # from the bias: an fp8-stored weight is upcast at every read
     @property
     def device(self) -> torch.device:
-        return self.unet.conv_in.weight.device
+        return self.unet.conv_in.bias.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.unet.conv_in.weight.dtype
+        return self.unet.conv_in.bias.dtype
 
     def _denormalize_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """NCHW latents -> the VAE's latent space."""
@@ -237,11 +239,8 @@ class FaithDiffPipeline:
         layout = compute_tile_layout(lh, lw, tile_k, overlap)
         dev = self.device
 
-        src = torch.as_tensor(np.asarray(lr_image), device=dev)   # one upload
-        image = self._prep_input(src)
-
-        # LQ features of the whole image; cut into the tile grid up front
-        # only when every tile runs in one UNet call
+        # the LQ features are cut into the tile grid up front only when
+        # every tile runs in one UNet call
         n = layout.num_tiles
         lazy = self.tile_chunk is not None and n > self.tile_chunk
         n_pad, devices, rank = n, 1, 0
@@ -259,124 +258,135 @@ class FaithDiffPipeline:
         # the padded tile list: tile t of it is tile idx[t] of the layout
         idx = np.arange(n_pad) % n
         chunk = n_pad if self.tile_chunk is None else min(self.tile_chunk, n_pad)
-        image_latents = self.denoise_encoder_apply(image)
-        lq_tiles = None if lazy else split_tiles(image_latents, layout)
 
-        # initial latents: NCHW noise from a CPU generator (bit-identical to
-        # diffusers' randn_tensor); the same generator then draws the VAE
-        # posterior noise
-        state = self.scheduler.set_timesteps(steps)
-        gen = torch.Generator().manual_seed(seed)
-        noise = torch.randn((1, 4, lh, lw), generator=gen)
-        if latents is None:
-            latents = noise.to(dev)
-        else:
-            latents = _tensor(latents, dev).permute(0, 3, 1, 2).contiguous()
-        latents = latents * state.init_noise_sigma
-        if start_point == "lr":
-            moments = self.vae_encode_moments(image)
-            lr_latents = sample_from_moments(moments, gen).float() \
-                * self.vae_scaling_factor
-            latents = self.ddpm_scheduler.add_noise(lr_latents, latents, [999])
+        with span("restore", h=h, w=w, tiles=n, chunk=chunk, steps=steps):
+            with span("encode"):
+                src = torch.as_tensor(np.asarray(lr_image), device=dev)   # one upload
+                image = self._prep_input(src)
+                # LQ features of the whole image
+                image_latents = self.denoise_encoder_apply(image)
+                lq_tiles = None if lazy else split_tiles(image_latents, layout)
 
-        # negative embeds default to zeros (force_zeros_for_empty_prompt)
-        prompt_embeds = _tensor(prompt_embeds, dev)
-        pooled_prompt_embeds = _tensor(pooled_prompt_embeds, dev)
-        neg = (torch.zeros_like(prompt_embeds) if negative_prompt_embeds is None
-               else _tensor(negative_prompt_embeds, dev))
-        neg_pooled = (torch.zeros_like(pooled_prompt_embeds)
-                      if negative_pooled_prompt_embeds is None
-                      else _tensor(negative_pooled_prompt_embeds, dev))
-        embeds = torch.cat([neg, prompt_embeds], dim=0)
-        pooled = torch.cat([neg_pooled, pooled_prompt_embeds], dim=0)
+                # initial latents: NCHW noise from a CPU generator
+                # (bit-identical to diffusers' randn_tensor); the same
+                # generator then draws the VAE posterior noise
+                state = self.scheduler.set_timesteps(steps)
+                gen = torch.Generator().manual_seed(seed)
+                noise = torch.randn((1, 4, lh, lw), generator=gen)
+                if latents is None:
+                    latents = noise.to(dev)
+                else:
+                    latents = _tensor(latents, dev).permute(0, 3, 1, 2).contiguous()
+                latents = latents * state.init_noise_sigma
+                if start_point == "lr":
+                    moments = self.vae_encode_moments(image)
+                    lr_latents = sample_from_moments(moments, gen).float() \
+                        * self.vae_scaling_factor
+                    latents = self.ddpm_scheduler.add_noise(lr_latents, latents, [999])
 
-        # per-tile add_time_ids: [orig (h, w), latent offset (i, j), target]
-        pos = tile_position_ids(layout).astype(np.float32)
-        size = np.tile(np.asarray((h, w), np.float32), (n, 1))
-        time_ids = torch.from_numpy(
-            np.concatenate([size, pos, size], axis=1)).to(dev)
+                # negative embeds default to zeros (force_zeros_for_empty_prompt)
+                prompt_embeds = _tensor(prompt_embeds, dev)
+                pooled_prompt_embeds = _tensor(pooled_prompt_embeds, dev)
+                neg = (torch.zeros_like(prompt_embeds) if negative_prompt_embeds is None
+                       else _tensor(negative_prompt_embeds, dev))
+                neg_pooled = (torch.zeros_like(pooled_prompt_embeds)
+                              if negative_pooled_prompt_embeds is None
+                              else _tensor(negative_pooled_prompt_embeds, dev))
+                embeds = torch.cat([neg, prompt_embeds], dim=0)
+                pooled = torch.cat([neg_pooled, pooled_prompt_embeds], dim=0)
 
-        # per-call constants at chunk size; a ragged last chunk takes a prefix
-        ctx_c = embeds.repeat(chunk, 1, 1)
-        pooled_c = pooled.repeat(chunk, 1)
-        weights = torch.from_numpy(gaussian_tile_weights(*layout.kernel)).to(dev)
+                # per-tile add_time_ids: [orig (h, w), latent offset (i, j), target]
+                pos = tile_position_ids(layout).astype(np.float32)
+                size = np.tile(np.asarray((h, w), np.float32), (n, 1))
+                time_ids = torch.from_numpy(
+                    np.concatenate([size, pos, size], axis=1)).to(dev)
 
-        def unet_chunk(tiles, i, lo):
-            """One UNet call over padded tiles [lo, lo + chunk): each tile's
-            CFG pair adjacent, tile-major. Under a tile group this rank
-            runs its share of the rows and the chunk's eps are gathered."""
-            hi = min(lo + chunk, n_pad)
-            per = (hi - lo) // devices
-            lo, hi = lo + rank * per, lo + (rank + 1) * per
-            # a slice where no tile repeats (every tile of a process alone)
-            sel = slice(lo, hi) if hi <= n else torch.from_numpy(idx[lo:hi])
-            if lq_tiles is None:
-                lq = split_tiles(image_latents, dataclasses.replace(
-                    layout, offsets=tuple(layout.offsets[t] for t in idx[lo:hi])))
-            else:
-                lq = lq_tiles[sel]
-            rows = 2 * (hi - lo)
-            model_in = self.scheduler.scale_model_input(
-                state, tiles[sel].repeat_interleave(2, dim=0), i)
-            eps = self.unet(model_in, state.timesteps[i], ctx_c[:rows],
-                            pooled_c[:rows],
-                            time_ids[sel].repeat_interleave(2, dim=0),
-                            lq.repeat_interleave(2, dim=0),
-                            add_sample=add_sample, fusion_group_size=2)
-            if self.tile_group is None:
-                return eps
-            parts = [torch.empty_like(eps) for _ in range(devices)]
-            dist.all_gather(parts, eps.contiguous(), group=self.tile_group)
-            return torch.cat(parts)
+                # per-call constants at chunk size; a ragged last chunk takes
+                # a prefix
+                ctx_c = embeds.repeat(chunk, 1, 1)
+                pooled_c = pooled.repeat(chunk, 1)
+                weights = torch.from_numpy(gaussian_tile_weights(*layout.kernel)).to(dev)
 
-        start = 0
-        ck_meta = None
-        if checkpoint_dir is not None and n > self.host_loop_tile_threshold:
-            ck_meta = {
-                "seed": int(seed), "h": int(h), "w": int(w),
-                "steps": int(steps), "overlap": float(overlap),
-                "guidance": float(guidance_scale),
-                "rescale": float(guidance_rescale),
-                "noise_source": noise_source, "start_point": start_point,
-                "add_sample": bool(add_sample),
-                # a new caption, caller latents or weights start afresh
-                "cond_hash": _content_hash(embeds, pooled),
-                "init_latents_hash": _content_hash(
-                    latents.permute(0, 2, 3, 1).contiguous()),
-                "params_fp": _params_fingerprint(self.unet),
-            }
-            resumed = _canvas_ckpt_load(checkpoint_dir, ck_meta)
-            if resumed is not None:
-                start, canvas = resumed
-                latents = torch.from_numpy(canvas).to(dev).permute(
-                    0, 3, 1, 2).contiguous()
-        elif checkpoint_dir is not None:
-            warnings.warn(
-                f"checkpoint_dir is ignored at {n} tiles <= "
-                f"host_loop_tile_threshold={self.host_loop_tile_threshold}: "
-                "as in the JAX package, only runs above it keep per-step "
-                "canvases to resume from.", stacklevel=2)
+            def unet_chunk(tiles, i, lo):
+                """One UNet call over padded tiles [lo, lo + chunk): each
+                tile's CFG pair adjacent, tile-major. Under a tile group
+                this rank runs its share of the rows and the chunk's eps
+                are gathered."""
+                hi = min(lo + chunk, n_pad)
+                per = (hi - lo) // devices
+                lo, hi = lo + rank * per, lo + (rank + 1) * per
+                # a slice where no tile repeats (every tile of a process alone)
+                sel = slice(lo, hi) if hi <= n else torch.from_numpy(idx[lo:hi])
+                if lq_tiles is None:
+                    lq = split_tiles(image_latents, dataclasses.replace(
+                        layout, offsets=tuple(layout.offsets[t] for t in idx[lo:hi])))
+                else:
+                    lq = lq_tiles[sel]
+                rows = 2 * (hi - lo)
+                model_in = self.scheduler.scale_model_input(
+                    state, tiles[sel].repeat_interleave(2, dim=0), i)
+                with span("unet", rows=rows):
+                    eps = self.unet(model_in, state.timesteps[i], ctx_c[:rows],
+                                    pooled_c[:rows],
+                                    time_ids[sel].repeat_interleave(2, dim=0),
+                                    lq.repeat_interleave(2, dim=0),
+                                    add_sample=add_sample, fusion_group_size=2)
+                    if self.tile_group is None:
+                        return eps
+                    parts = [torch.empty_like(eps) for _ in range(devices)]
+                    dist.all_gather(parts, eps.contiguous(), group=self.tile_group)
+                    return torch.cat(parts)
 
-        for i in range(start, steps):
-            tiles = split_tiles(latents, layout)
-            # the padded tiles' rows are dropped before the merge
-            eps = torch.cat([unet_chunk(tiles, i, lo)
-                             for lo in range(0, n_pad, chunk)])[:2 * n]
-            eps = eps.reshape(n, 2, *eps.shape[1:])
-            eps_uncond, eps_text = eps[:, 0], eps[:, 1]
-            eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-            if guidance_rescale > 0.0:
-                eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
-            tiles = self.scheduler.step(state, eps, i, tiles)
-            latents = merge_tiles(tiles, layout, weights)
-            if ck_meta is not None and rank == 0:     # one writer a group
-                _canvas_ckpt_save(checkpoint_dir, ck_meta, i, latents.permute(
-                    0, 2, 3, 1).float().cpu().numpy())
-        del lq_tiles, image_latents
+            start = 0
+            ck_meta = None
+            if checkpoint_dir is not None and n > self.host_loop_tile_threshold:
+                ck_meta = {
+                    "seed": int(seed), "h": int(h), "w": int(w),
+                    "steps": int(steps), "overlap": float(overlap),
+                    "guidance": float(guidance_scale),
+                    "rescale": float(guidance_rescale),
+                    "noise_source": noise_source, "start_point": start_point,
+                    "add_sample": bool(add_sample),
+                    # a new caption, caller latents or weights start afresh
+                    "cond_hash": _content_hash(embeds, pooled),
+                    "init_latents_hash": _content_hash(
+                        latents.permute(0, 2, 3, 1).contiguous()),
+                    "params_fp": _params_fingerprint(self.unet),
+                }
+                resumed = _canvas_ckpt_load(checkpoint_dir, ck_meta)
+                if resumed is not None:
+                    start, canvas = resumed
+                    latents = torch.from_numpy(canvas).to(dev).permute(
+                        0, 3, 1, 2).contiguous()
+            elif checkpoint_dir is not None:
+                warnings.warn(
+                    f"checkpoint_dir is ignored at {n} tiles <= "
+                    f"host_loop_tile_threshold={self.host_loop_tile_threshold}: "
+                    "as in the JAX package, only runs above it keep per-step "
+                    "canvases to resume from.", stacklevel=2)
 
-        if output_type == "latent":
-            return latents.permute(0, 2, 3, 1).contiguous()
-        return self._decode(latents, src, color_fix, output_type == "uint8")
+            for i in range(start, steps):
+                with span("step", i=i):
+                    tiles = split_tiles(latents, layout)
+                    # the padded tiles' rows are dropped before the merge
+                    eps = torch.cat([unet_chunk(tiles, i, lo)
+                                     for lo in range(0, n_pad, chunk)])[:2 * n]
+                    eps = eps.reshape(n, 2, *eps.shape[1:])
+                    eps_uncond, eps_text = eps[:, 0], eps[:, 1]
+                    eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+                    if guidance_rescale > 0.0:
+                        eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
+                    tiles = self.scheduler.step(state, eps, i, tiles)
+                    latents = merge_tiles(tiles, layout, weights)
+                    if ck_meta is not None and rank == 0:     # one writer a group
+                        _canvas_ckpt_save(checkpoint_dir, ck_meta, i, latents.permute(
+                            0, 2, 3, 1).float().cpu().numpy())
+            del lq_tiles, image_latents
+
+            if output_type == "latent":
+                return latents.permute(0, 2, 3, 1).contiguous()
+            with span("decode"):
+                return self._decode(latents, src, color_fix, output_type == "uint8")
 
     @torch.no_grad()
     def decode(self, latents, lr_image, color_fix: Optional[str] = None,
@@ -387,9 +397,10 @@ class FaithDiffPipeline:
         if output_type not in ("np", "uint8"):
             raise ValueError(f"unknown output_type {output_type!r}")
         dev = self.device
-        src = torch.as_tensor(np.asarray(lr_image), device=dev)
-        latents = _tensor(latents, dev).permute(0, 3, 1, 2).contiguous()
-        return self._decode(latents, src, color_fix, output_type == "uint8")
+        with span("decode"):
+            src = torch.as_tensor(np.asarray(lr_image), device=dev)
+            latents = _tensor(latents, dev).permute(0, 3, 1, 2).contiguous()
+            return self._decode(latents, src, color_fix, output_type == "uint8")
 
     def _decode(self, latents: torch.Tensor, src: torch.Tensor,
                 color_fix: Optional[str], to_uint8: bool) -> np.ndarray:

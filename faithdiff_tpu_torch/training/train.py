@@ -51,6 +51,7 @@ from ..config import SchedulerConfig, TrainConfig
 from ..models.vae import sample_from_moments
 from ..parallel.mesh import LeadingShards
 from ..schedulers import DDPMScheduler
+from ..utils.profiling import span
 from .ema import EMAState, ema_init, ema_update
 
 Schedule = Callable[[int], float]
@@ -429,14 +430,13 @@ def make_train_step(unet: nn.Module, denoise_encoder: nn.Module, vae: nn.Module,
         if rows is not None:
             batch = {k: v[rows] for k, v in batch.items()}
             draws = {k: v[rows] for k, v in draws.items()}
-        # a profiler sees the micro-step as the ranges train_step.forward,
-        # .backward and .optimizer
+        # the micro-step's spans: train_step.forward, .backward and .optimizer
         with state.opt.accumulating() as squares:
-            with torch.profiler.record_function("train_step.forward"):
+            with span("train_step.forward"):
                 loss = loss_fn(batch, draws)
-            with torch.profiler.record_function("train_step.backward"):
+            with span("train_step.backward"):
                 loss.backward()
-        with torch.profiler.record_function("train_step.optimizer"):
+        with span("train_step.optimizer"):
             grad_norm = torch.sqrt(torch.stack(squares).sum())
             state.opt.step()
             state.step += 1

@@ -1,8 +1,8 @@
 """The port's `utils/profiling.py` on the CPU, against the JAX package's
 `utils/profiling.py`: the phase registry and its reports (the cases of
 `tests/test_quant_profiling.py`), a Chrome trace written by `trace` with
-the `annotate` ranges in it, and the trace's kernel split and busy share
-on a hand-made timeline."""
+a `span`'s range in it, and the trace's kernel split and busy share on a
+hand-made timeline."""
 import contextlib
 import io
 import json
@@ -71,7 +71,7 @@ def test_phase_records_on_error():
 def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     x = torch.randn(64, 64)
     with profiling.trace(str(tmp_path / "t")) as prof:
-        with profiling.annotate("my_range"):
+        with profiling.span("my_range"):        # the recorder off: a range
             (x @ x).sum()
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
     names = {e.get("name") for e in events}
