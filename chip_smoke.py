@@ -25,6 +25,16 @@
    launch's own methods. Every GroupNorm time comes from CUDA graphs, each
    row with its bound, `F.group_norm` where that one call computes the same
    function, and the wrapper's host cost (`host_us`).
+3c. LayerNorm (`csrc/layer_norm.cu`) at the UNet's three shapes at batch 12
+   (the 1536x2048 restore) in bf16, a CLIP tower's fp32 [2, 77, 768], an
+   odd d and a row-strided view: against the plain chain and the tile walk
+   within one step of the output type (fp32: 1e-5 relative), the same bits
+   on a repeat; kernel, chain and `F.layer_norm` timed from CUDA graphs
+   over copies of x that outgrow the L2, the bound (x read, y written) and
+   the wrapper's host cost. Every path's launch check counts one
+   `layer_norm` launch a `models.layers.LayerNorm` call on a CUDA tensor
+   (`clear_launches`, `LN_CALLS`); the UNet's are 3 a transformer block
+   and 2 an information-transformer layer a call, none of them copied.
 4. Runs a full-width restore (default SDXL UNet / VAE / denoise-encoder
    configs, bf16, seeded random weights) of a 1024x1536 uint8 image: two
    128^2 latent tiles, 20 Euler steps, guidance 5, start_point "lr",
@@ -262,6 +272,7 @@ Imports nothing of JAX. Exits nonzero on any failure.
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
 import functools
 import gc
@@ -345,6 +356,18 @@ GN_SHAPES = [((4, 320, 128, 128), 1e-5, "silu", True),
 # and the GroupNorm shape for which one library call (F.group_norm)
 # computes the same function
 ATTN_REPORT, GN_REPORT, PACKED_REPORT = 0, 1, 0
+# (shape, x dtype, eps, column slice): the UNet's LayerNorms at batch 12
+# (transformer blocks at 1280 and 640 channels, the information
+# transformer's fusion tokens), a CLIP tower's in fp32, an odd d (element
+# loads) and a column slice of a wider x (row stride 1280, read in place)
+LN_SHAPES = [((12 * 1024, 1280), "bfloat16", 1e-5, None),
+             ((12 * 4096, 640), "bfloat16", 1e-5, None),
+             ((6, 16384, 2, 640), "bfloat16", 1e-5, None),
+             ((2, 77, 768), "float32", 1e-5, None),
+             ((4096, 33), "bfloat16", 1e-5, None),
+             ((4 * 4096, 1280), "bfloat16", 1e-5, 640)]
+LN_REPORT = 0                # the shape the kernels line reports
+L2_BYTES = 50 * 2 ** 20      # H100 SXM L2
 
 TILE_PIXELS = (1024, 1536)
 # the CLI phases' photos: 512x768 at the default --upscale 2 is the
@@ -468,6 +491,33 @@ def host_us(torch, fn, calls: int = 200) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
+
+
+# `models.layers.LayerNorm` calls on CUDA tensors since the last
+# clear_launches(), each one launch of the LayerNorm kernel: as a dict,
+# the `layer_norm` launches a path should show ({} where it ran none)
+LN_CALLS = collections.Counter()
+
+
+def clear_launches() -> None:
+    """Clears the kernel launch counters and LN_CALLS. The first call wraps
+    `LayerNorm.forward` for the rest of the process to count its calls on
+    CUDA tensors, in every model a path builds (the CLI's too)."""
+    from faithdiff_tpu_torch.models.layers import LayerNorm
+    from faithdiff_tpu_torch.ops import _build
+
+    if not getattr(LayerNorm.forward, "counted", False):
+        forward = LayerNorm.forward
+
+        def counted(self, x):
+            if x.is_cuda and x.numel():
+                LN_CALLS["layer_norm"] += 1
+            return forward(self, x)
+
+        counted.counted = True
+        LayerNorm.forward = counted
+    _build.launches.clear()
+    LN_CALLS.clear()
 
 
 def flash_timing(torch, flops, nbytes, kernel, plain, library,
@@ -1174,6 +1224,108 @@ def check_group_norm(torch):
     return fused_rows, stats_rows, apply_rows
 
 
+def output_steps(torch, out, ref) -> float:
+    """The largest |out - ref| in steps of out's type at the larger of the
+    two magnitudes, those below 2^-8 counted at 2^-8: there a LayerNorm's
+    y = t * w + b cancels, and the fp32 roundings of t * w, in another
+    order in the plain chain, outgrow a step of y itself."""
+    bits = {torch.bfloat16: 7, torch.float16: 10}[out.dtype]
+    big = torch.maximum(out.float().abs(), ref.float().abs()).clamp_min(2.0 ** -8)
+    step = torch.exp2(torch.floor(torch.log2(big)) - bits)
+    return float(((out.float() - ref.float()).abs() / step).max())
+
+
+def check_layer_norm(torch):
+    """The LayerNorm kernel at every LN_SHAPES shape, through the models'
+    entry point (`ops.layernorm.layer_norm`), parameters in x's type as the
+    models hold them: one launch, within one step of the output type of
+    the plain chain and of the tile walk (fp32: 1e-5 * (1 + |ref|)), the
+    same bits on a repeat. Kernel, chain and `F.layer_norm` are timed from
+    CUDA graphs whose calls cycle through copies of x that together
+    outgrow the L2, so that each call reads x from device memory as the
+    bound (x read once, y written once) assumes; the wrapper's host cost
+    from a loop of calls."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from faithdiff_tpu_torch.ops import _build
+    from faithdiff_tpu_torch.ops.layernorm import (layer_norm,
+                                                   layer_norm_reference,
+                                                   layer_norm_tiled,
+                                                   plan_layer_norm)
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape, dtype, eps, cols in LN_SHAPES:
+        dtype = getattr(torch, dtype)
+        full = (2 * torch.randn(shape, generator=gen, device="cuda") + 0.3).to(dtype)
+        x = full if cols is None else full[..., :cols]
+        d = x.shape[-1]
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+        b = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+        plan = plan_layer_norm(x.shape, x.stride(), x.element_size(),
+                               x.data_ptr() % 16 == 0)
+        with torch.no_grad():
+            clear_launches()
+            y = layer_norm(x, w, b, eps)
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            same = bool(torch.equal(y, layer_norm(x, w, b, eps)))
+            ref = layer_norm_reference(x, w, b, eps)
+            walk = layer_norm_tiled(x, w, b, eps)
+            if dtype == torch.float32:
+                err = (y - ref).abs()
+                in_tol = bool((err <= 1e-5 * (1 + ref.abs())).all())
+                t_err = (y - walk).abs()
+                tiled_ok = bool((t_err <= 1e-5 * (1 + walk.abs())).all())
+                tol, steps, tiled_steps = "1e-5 * (1 + |ref|)", None, None
+            else:
+                err = (y.float() - ref.float()).abs()
+                steps = output_steps(torch, y, ref)
+                tiled_steps = output_steps(torch, y, walk)
+                in_tol, tiled_ok = steps <= 1, tiled_steps <= 1
+                tol = "1 step of the output type"
+            max_err = float(err.max())
+            del ref, walk, err
+            nbytes = full.numel() * full.element_size()
+            n_x = max(1, -(-2 * L2_BYTES // nbytes))
+            xs = [x] + [full.clone()[..., :d] for _ in range(n_x - 1)]
+            turn = itertools.count()
+
+            def cold(fn):
+                return lambda: fn(xs[next(turn) % n_x])
+
+            ms = graph_ms(torch, cold(lambda v: layer_norm(v, w, b, eps)))
+            plain_ms = graph_ms(torch, cold(
+                lambda v: layer_norm_reference(v, w, b, eps)))
+            library_ms = graph_ms(torch, cold(
+                lambda v: F.layer_norm(v, (d,), w, b, eps)))
+            wrapper_us = host_us(torch, lambda: layer_norm(x, w, b, eps))
+        numel = x.numel()
+        bound_ms, bound_by = bound(8 * numel, 2 * numel * x.element_size(),
+                                   PEAK_FP32_FLOPS)
+        row = dict(shape=list(x.shape), stride=list(x.stride()),
+                   dtype=str(dtype).split(".")[-1], eps=eps,
+                   threads_per_row=plan.threads_per_row, items=plan.items,
+                   vector=plan.vector, copy=plan.copy, blocks=plan.grid,
+                   launches=launches, max_abs_err=max_err, max_steps=steps,
+                   tiled_steps=tiled_steps, tol=tol, same_bits=same,
+                   ok=(in_tol and tiled_ok and same and not plan.copy
+                       and launches == {"layer_norm": 1}
+                       and bool(torch.isfinite(y).all())),
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   ms_over_bound=ms / bound_ms, roofline_pct=100 * bound_ms / ms,
+                   plain_over_kernel=plain_ms / ms, host_us=wrapper_us,
+                   x_copies=n_x)
+        print("layer_norm", json.dumps(row), flush=True)
+        rows.append(row)
+        del full, x, xs, y
+        torch.cuda.empty_cache()
+    return rows
+
+
 def count_modules(module, cls) -> int:
     return sum(isinstance(m, cls) for m in module.modules())
 
@@ -1218,11 +1370,21 @@ class PathWatch:
     gate predicts the d = 512 kernel's."""
 
     def __init__(self, torch, pipe):
-        from faithdiff_tpu_torch.models.layers import GroupNorm
+        from faithdiff_tpu_torch.models.adapters import ResidualAttentionBlock
+        from faithdiff_tpu_torch.models.layers import GroupNorm, LayerNorm
+        from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
         from faithdiff_tpu_torch.models.unet_blocks import VaeAttention
 
         self.events, self.last_call, self.gn_seen = [], [], []
         self.first_call, self.batches, self.vae_attention = [], [], []
+        self.ln_seen = []
+        # the UNet's LayerNorms a call: 3 a transformer block, 2 a layer of
+        # the information transformer, and no other
+        self.ln_per_call = (3 * count_modules(pipe.unet, BasicTransformerBlock)
+                            + 2 * count_modules(pipe.unet, ResidualAttentionBlock))
+        if count_modules(pipe.unet, LayerNorm) != self.ln_per_call:
+            fail(f"UNet has {count_modules(pipe.unet, LayerNorm)} LayerNorms, "
+                 f"its blocks and layers account for {self.ln_per_call}")
 
         def record(*_):
             ev = torch.cuda.Event(enable_timing=True)
@@ -1259,6 +1421,14 @@ class PathWatch:
                        for m in getattr(pipe, name).modules()
                        if isinstance(m, VaeAttention)]
 
+        def ln_hook(module, args):
+            x = args[0]
+            self.ln_seen.append((tuple(x.shape), tuple(x.stride()),
+                                 x.element_size(), x.data_ptr() % 16 == 0))
+
+        self.hooks += [m.register_forward_pre_hook(ln_hook)
+                       for m in pipe.unet.modules() if isinstance(m, LayerNorm)]
+
     def remove(self):
         for h in self.hooks:
             h.remove()
@@ -1285,11 +1455,30 @@ class PathWatch:
     def unet_ms(self):
         return [a.elapsed_time(b) for a, b in zip(self.events[::2], self.events[1::2])]
 
+    def layer_norm_launches(self, label) -> dict:
+        """{"layer_norm": n}: `ln_per_call` launches a UNet call plus one
+        for each LayerNorm call of the path's other models (the text
+        towers; LN_CALLS less the UNet's). Fails unless the UNet's calls
+        seen are that many and `plan_layer_norm` copies none of them."""
+        from faithdiff_tpu_torch.ops.layernorm import plan_layer_norm
+
+        unet = len(self.events) // 2 * self.ln_per_call
+        if len(self.ln_seen) != unet:
+            fail(f"{label}: {len(self.ln_seen)} UNet LayerNorm calls, expected "
+                 f"{self.ln_per_call} a call ({unet})")
+        copies = sum(plan_layer_norm(*seen).copy for seen in self.ln_seen)
+        if copies:
+            fail(f"{label}: {copies} UNet LayerNorm inputs would be copied "
+                 "(layer_norm.copies), expected none")
+        n = unet + LN_CALLS["layer_norm"] - len(self.ln_seen)
+        return {"layer_norm": n} if n else {}
+
     def expected_launches(self, label, flash, gn_unet, attn_unet):
         """{kernel counter: launches} the run should show: `flash` once per
         self-attention of each UNet call, each GroupNorm's kernels as
-        `plan_group_norm` plans them; fails unless every UNet GroupNorm was
-        one single-pass launch."""
+        `plan_group_norm` plans them, `layer_norm` as `layer_norm_launches`
+        counts it; fails unless every UNet GroupNorm was one single-pass
+        launch."""
         from faithdiff_tpu_torch.ops.groupnorm import plan_group_norm
 
         calls = len(self.events) // 2
@@ -1308,6 +1497,7 @@ class PathWatch:
         if unet_routes != ["fused"] * (calls * gn_unet):
             fail(f"{label}: not every UNet GroupNorm is one single-pass launch: "
                  f"{len(unet_routes)} calls, {unet_routes.count('fused')} fused")
+        expected.update(self.layer_norm_launches(label))
         return expected
 
 
@@ -1347,7 +1537,7 @@ def run_restore(torch, pipe, packed: bool, pixels=TILE_PIXELS,
     pooled = torch.zeros((1, 1280))
 
     with attention_path(packed):
-        _build.launches.clear()
+        clear_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1538,7 +1728,7 @@ def run_cli_restore(torch, pipe, root: str) -> str:
     write_png(os.path.join(root, "in", "photo.png"), img)
     gn_unet, attn_unet = unet_counts(pipe)
     with cli_pipeline_watch(torch) as seen:
-        _build.launches.clear()
+        clear_launches()
         split = run_cli(["restore", "--img_dir", os.path.join(root, "in"),
                          "--save_dir", os.path.join(root, "out"),
                          "--checkpoint_dir", ckpt])
@@ -1623,7 +1813,7 @@ def run_cli_restore_tiled(torch, root: str, ckpt: str) -> None:
     hooks = [("vae.encoder", counter("encode")), ("vae.decoder", counter("decode")),
              ("denoise_encoder", counter("denoise_encoder"))]
     with cli_pipeline_watch(torch, hooks) as seen:
-        _build.launches.clear()
+        clear_launches()
         torch.cuda.reset_peak_memory_stats()
         split = run_cli(["restore", "--img_dir", os.path.join(root, "in_tiled"),
                          "--save_dir", os.path.join(root, "out_tiled"),
@@ -1830,7 +2020,7 @@ def run_restore_4k(torch, pipe, ckpt_dir: str) -> dict:
 
     def run(label):
         watch = PathWatch(torch, tiled)
-        _build.launches.clear()
+        clear_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2039,7 +2229,7 @@ def run_cli_restore_prompt(torch, pipe, root: str, ckpt: str) -> None:
     cli.build_text_encoder = watched
     try:
         with cli_pipeline_watch(torch) as seen:
-            _build.launches.clear()
+            clear_launches()
             split = run_cli(["restore", "--img_dir", os.path.join(root, "in"),
                              "--save_dir", os.path.join(root, "out_prompt"),
                              "--checkpoint_dir", ckpt, "--tokenizer_dir", tok_root,
@@ -2174,7 +2364,7 @@ def check_nf4(torch, ms_checked=None):
                         for _ in range(int(2 * 50e6 // weight_bytes))]
         for m in ms_checked:
             x = torch.randn((m, in_f), generator=gen, device="cuda").to(torch.bfloat16)
-            _build.launches.clear()
+            clear_launches()
             out = nf4_matmul_kernel(x, q)
             route = next((r for r in ("nf4_gemv", "nf4_gemm") if _build.launches[r]), None)
             same_bits = bool(torch.equal(out, nf4_matmul_kernel(x, q)))
@@ -2282,7 +2472,7 @@ def check_caption_small(torch):
     worst = 0.0
     with torch.no_grad():
         for e, p, route in ((emb, pos, "nf4_gemm"), (emb[:1, :1], pos[:1, :1], "nf4_gemv")):
-            _build.launches.clear()
+            clear_launches()
             ref, _ = cpu(e, p)
             got, _ = card(e.cuda().bfloat16(), p.cuda())
             torch.cuda.synchronize()
@@ -2323,7 +2513,7 @@ def check_llama_prefill(torch):
     pos = torch.arange(PREFILL_TOKENS, device="cuda")[None]
     with torch.no_grad():
         model(emb, pos)                                     # warm-up
-        _build.launches.clear()
+        clear_launches()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         logits, _ = model(emb, pos)
@@ -2350,7 +2540,7 @@ def run_bench(torch):
     from faithdiff_tpu_torch.ops.attention_variants import VARIANTS
     from faithdiff_tpu_torch.scripts import bench_attention_variants as bench
 
-    _build.launches.clear()
+    clear_launches()
     rows = bench.main()
     torch.cuda.synchronize()
     counts = dict(_build.launches)
@@ -2427,7 +2617,7 @@ def run_caption(torch, quant: str = "nf4"):
 
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in CAPTION_IMAGES]
-    _build.launches.clear()
+    clear_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2454,15 +2644,20 @@ def run_caption(torch, quant: str = "nf4"):
             fail(f"caption tokens out of range or empty: {ids[:10]}")
     if n_fwd < 2 or n_fwd > CAPTION_NEW_TOKENS:
         fail(f"{n_fwd} forward passes")
+    # the vision tower's LayerNorms, one launch each, outside the LLaMA
+    vision_ln = dict(LN_CALLS)
+    if not vision_ln:
+        fail(f"{label}: the vision tower ran no LayerNorm on the card")
     if quant == "nf4":
         if counts != {"nf4_matmul": NF4_PER_FORWARD * n_fwd, "nf4_gemm": NF4_PER_FORWARD,
-                      "nf4_gemv": NF4_PER_FORWARD * (n_fwd - 1)}:
+                      "nf4_gemv": NF4_PER_FORWARD * (n_fwd - 1), **vision_ln}:
             fail(f"launch counts {counts}, expected nf4_matmul = {NF4_PER_FORWARD} x "
-                 f"{n_fwd}, nf4_gemm {NF4_PER_FORWARD} (prefill), the rest nf4_gemv")
+                 f"{n_fwd}, nf4_gemm {NF4_PER_FORWARD} (prefill), the rest nf4_gemv, "
+                 f"and {vision_ln}")
         check_forward_routes(calls, NF4_PER_FORWARD, label)
-    elif counts:
-        fail(f"{label}: launch counts {counts}, expected none (no NF4 projection; "
-             f"the prompt is under the flash gate)")
+    elif counts != vision_ln:
+        fail(f"{label}: launch counts {counts}, expected only the vision tower's "
+             f"{vision_ln} (no NF4 projection; the prompt is under the flash gate)")
     prefill_ms = calls[0][0].elapsed_time(calls[0][1])
     decode_ms = calls[0][1].elapsed_time(end)
     n_decode = n_fwd - 1
@@ -2729,11 +2924,12 @@ def run_cli_caption(torch, root: str) -> dict:
                 captions[name] = json.load(f)
         return agent, load_s, out.getvalue(), captions
 
-    _build.launches.clear()
+    clear_launches()
     cli_agent, load_s, log, captions = caption_cli(os.path.join(root, "caps"))
     caption_s = [float(x) for x in re.findall(r"caption_s=([0-9.]+)", log)]
-    if len(caption_s) != len(names) or _build.launches:
-        fail(f"cli_caption: {len(caption_s)} captions, launches {dict(_build.launches)}")
+    if len(caption_s) != len(names) or dict(_build.launches) != dict(LN_CALLS):
+        fail(f"cli_caption: {len(caption_s)} captions, launches {dict(_build.launches)}, "
+             f"expected the vision tower's {dict(LN_CALLS)}")
 
     # the buffers the CLI loaded are the int8 quantisation of the written weights
     def check_buffers(agent, mode):
@@ -2792,7 +2988,7 @@ def run_cli_caption(torch, root: str) -> dict:
     nf4_load_s = time.perf_counter() - t
     n_nf4 = check_buffers(nf4, "nf4")
     watch = ForwardWatch(nf4.llama)
-    _build.launches.clear()
+    clear_launches()
     t = time.perf_counter()
     nf4_caption = nf4.caption(read_png(os.path.join(img_dir, f"{names[0]}.png")), seed=0)
     torch.cuda.synchronize()
@@ -2802,7 +2998,7 @@ def run_cli_caption(torch, root: str) -> dict:
     n_fwd = len(watch.calls)
     nf4_launches = dict(_build.launches)
     if nf4_launches != {"nf4_matmul": per_forward * n_fwd, "nf4_gemm": per_forward,
-                        "nf4_gemv": per_forward * (n_fwd - 1)}:
+                        "nf4_gemv": per_forward * (n_fwd - 1), **LN_CALLS}:
         fail(f"cli_caption: nf4 launches {nf4_launches} over {n_fwd} forwards")
     check_forward_routes(watch.calls, per_forward, "cli_caption nf4")
     del nf4, watch
@@ -2897,12 +3093,14 @@ TRAIN_RES = 512
 # of caption training (2 sequences of 1024 tokens); packed: the same 1024-token
 # attention on the packed path; GroupNorm: a UNet ResNet norm at 64^2
 # latents (single pass) and the denoise encoder's first norm at 512 px
-# (two passes: its group outgrows a cluster)
+# (two passes: its group outgrows a cluster); LayerNorm: a stage-1
+# transformer block's at 32^2 latents, 640 channels (batch 16)
 TRAIN_ATTN_SHAPES = [((16, 10, 1024, 64), False), ((2, 10, 4096, 64), False),
                      ((2, 40, 1024, 128), True)]
 TRAIN_PACKED = ((16, 1024, 640), 10)
 TRAIN_GN = [((16, 320, 64, 64), 1e-5, "silu", True, "fused"),
             ((2, 128, 512, 512), 1e-6, "silu", False, "two_pass")]
+TRAIN_LN = (16, 1024, 640)
 # the JAX stage defaults (batch, accum, remat); stage 1 falls back to the
 # largest batch that fits in TRAIN_FALLBACK_BATCHES
 STAGE1, STAGE2 = (16, 4, False), (2, 16, True)
@@ -2910,7 +3108,8 @@ TRAIN_FALLBACK_BATCHES = (12, 8, 6, 4, 2)
 TRAIN_COUNTERS = ("flash_attention_fwd", "flash_attention_bsnd_fwd",
                   "flash_attention_f32_fwd", "flash_attention_f32_bsnd_fwd",
                   "attention_variant_fwd", "group_norm_fused",
-                  "group_norm_stats", "group_norm_apply", "nf4_matmul")
+                  "group_norm_stats", "group_norm_apply", "layer_norm",
+                  "nf4_matmul")
 
 
 def check_train_autograd(torch):
@@ -2926,6 +3125,7 @@ def check_train_autograd(torch):
     from faithdiff_tpu_torch.ops import _build
     from faithdiff_tpu_torch.ops import attention as A
     from faithdiff_tpu_torch.ops import groupnorm as G
+    from faithdiff_tpu_torch.ops import layernorm as LN
 
     gen = torch.Generator(device="cuda").manual_seed(5)
 
@@ -2934,7 +3134,7 @@ def check_train_autograd(torch):
         return t.to(dtype).requires_grad_(True)
 
     def run(label, entry, bare, plain, inputs, counters):
-        _build.launches.clear()
+        clear_launches()
         out = entry(*inputs)
         torch.cuda.synchronize()
         fwd_launches = {c: _build.launches[c] for c in counters}
@@ -2942,7 +3142,7 @@ def check_train_autograd(torch):
             same = torch.equal(out, bare(*inputs))
         g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
         wrt = [t for t in inputs if t is not None]
-        _build.launches.clear()
+        clear_launches()
         grads = torch.autograd.grad(out, wrt, g, retain_graph=True)
         bwd_launches = sum(_build.launches.values())
         leaves = [t.detach().requires_grad_(True) for t in wrt]
@@ -3010,6 +3210,17 @@ def check_train_autograd(torch):
             lambda x, s, b, a: G.group_norm_reference(x, s, b, 32, eps, act, a),
             [x, s, b, a], plan.counters))
         del x, s, b, a
+    # a transformer block's LayerNorm under autocast: bf16 x, fp32 master
+    # weights
+    x = leaf(TRAIN_LN, scale=2.0, offset=0.3)
+    w = leaf(TRAIN_LN[-1], torch.float32, offset=1.0, scale=0.1)
+    b = leaf(TRAIN_LN[-1], torch.float32, scale=0.1)
+    rows.append(run(
+        "layer_norm", lambda x, w, b: LN.layer_norm(x, w, b, 1e-5),
+        lambda x, w, b: LN._layer_norm_launch(x, w, b, epsilon=1e-5),
+        lambda x, w, b: LN.layer_norm_reference(x, w, b, 1e-5),
+        [x, w, b], ("layer_norm",)))
+    del x, w, b
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -3047,12 +3258,13 @@ def checksums(torch, tensors):
 
 class TrainWatch:
     """Forward pre-hooks for a training run: each self-attention (attn1)
-    call at >= 1024 tokens, which must be one flash launch, and each
-    GroupNorm call's plan, whose counters it must add to; recomputed
-    forwards under checkpointing run the hooks again."""
+    call at >= 1024 tokens, which must be one flash launch, each
+    GroupNorm call's plan, whose counters it must add to, and each
+    LayerNorm call, one launch; recomputed forwards under checkpointing
+    run the hooks again."""
 
     def __init__(self, torch, models):
-        from faithdiff_tpu_torch.models.layers import GroupNorm
+        from faithdiff_tpu_torch.models.layers import GroupNorm, LayerNorm
         from faithdiff_tpu_torch.models.transformer2d import BasicTransformerBlock
         from faithdiff_tpu_torch.ops.groupnorm import plan_group_norm
 
@@ -3079,6 +3291,9 @@ class TrainWatch:
                     self.hooks.append(m.attn1.register_forward_pre_hook(attn_hook))
                 elif isinstance(m, GroupNorm):
                     self.hooks.append(m.register_forward_pre_hook(gn_hook))
+                elif isinstance(m, LayerNorm):
+                    self.hooks.append(m.register_forward_pre_hook(
+                        lambda module, args: add("layer_norm")))
 
     def remove(self):
         for h in self.hooks:
@@ -3165,7 +3380,7 @@ def run_train_micro_steps(torch, label, state, step, batch, n, models,
     ema_sums = [checksums(torch, list(state.ema.params.values()))]
     watch = TrainWatch(torch, models)
     ms, metrics, split = [], [], None
-    _build.launches.clear()
+    clear_launches()
     torch.cuda.reset_peak_memory_stats()
     try:
         for i in range(n):
@@ -3765,7 +3980,7 @@ def run_cli_restore_fp8(torch, pipe8, root: str, ckpt: str) -> dict:
     img = read_png(os.path.join(root, "in", "photo.png"))
     gn_unet, attn_unet = unet_counts(pipe8)
     with cli_pipeline_watch(torch) as seen:
-        _build.launches.clear()
+        clear_launches()
         split = run_cli(["restore", "--use_fp8", "--img_dir",
                          os.path.join(root, "in"), "--save_dir",
                          os.path.join(root, "out_fp8"), "--checkpoint_dir", ckpt])
@@ -3962,7 +4177,7 @@ def run_caption_train(torch) -> dict:
         seen_n[0] += 1
 
     def timed(mode, fn, *args):
-        _build.launches.clear()
+        clear_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         metrics = fn(*args)
@@ -3971,8 +4186,9 @@ def run_caption_train(torch) -> dict:
                          loss=float(metrics["loss"]),
                          grad_norm=float(metrics["grad_norm"])))
         launches.append(dict(_build.launches))
+        vision_ln.append(dict(LN_CALLS))
 
-    rows, launches = [], []
+    rows, launches, vision_ln = [], [], []
     for i in range(CAPTION_TRAIN_STEPS):
         params = ct.named_caption_params(m)
         hooks = []
@@ -4015,7 +4231,8 @@ def run_caption_train(torch) -> dict:
     finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                  for r in rows)
     # one causal flash launch a layer (the sequence is >= 1024 tokens; the
-    # ViT's 577 stay on the plain path), and no other kernel
+    # ViT's 577 stay on the plain path), and one LayerNorm launch for each
+    # LayerNorm call of the vision tower; no other kernel
     expected = {"flash_attention_fwd": lcfg.num_hidden_layers}
     steps = CAPTION_TRAIN_STEPS
     result = dict(
@@ -4034,7 +4251,8 @@ def run_caption_train(torch) -> dict:
         finite=finite)
     print("caption_train", json.dumps(result), flush=True)
     ok = (finite and norm_ok and frozen_still and proj_changed and lora_changed
-          and launches == [expected] * len(launches))
+          and all(ln for ln in vision_ln)
+          and launches == [dict(expected, **ln) for ln in vision_ln])
     if not ok:
         fail(f"caption_train: {result}")
     return result
@@ -4203,7 +4421,7 @@ def run_metrics(torch, root: str) -> dict:
             "--paq2piq_weights", paths["paq2piq"], "--maniqa_weights", paths["maniqa"],
             "--device", "cuda", "--log", os.path.join(base, "metrics.log")]
     out = io.StringIO()
-    _build.launches.clear()
+    clear_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4221,8 +4439,9 @@ def run_metrics(torch, root: str) -> dict:
                if not (m in means and math.isfinite(means[m]))]
     if missing:
         fail(f"metrics: no finite mean for {missing}")
-    if launches:
-        fail(f"metrics: the IQA networks launched counted kernels {launches}")
+    if launches != dict(LN_CALLS):
+        fail(f"metrics: the IQA networks launched counted kernels {launches}, "
+             f"expected only their LayerNorms' {dict(LN_CALLS)}")
 
     # PSNR / SSIM on the card against float64 numpy (the GT as the harness
     # resizes it)
@@ -4416,7 +4635,7 @@ def run_vqa(torch, agent, root: str) -> dict:
     hooks = [agent.llama.register_forward_pre_hook(pre),
              agent.llama.register_forward_hook(post)]
     answers = {k: os.path.join(base, f"{k}.jsonl") for k in ("vqa", "loader", "mmbench")}
-    _build.launches.clear()
+    clear_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -4447,8 +4666,12 @@ def run_vqa(torch, agent, root: str) -> dict:
     if bad or not calls:
         fail(f"vqa: per-forward launches off their routes: {bad[:3]}")
     n_pre = sum(c[0] > 1 for c in calls)
-    if n_pre != 14 or set(counts) != {"nf4_matmul", "nf4_gemm", "nf4_gemv"}:
-        fail(f"vqa: {n_pre} prefills, launches {counts}")
+    nf4_only = {k: v for k, v in counts.items() if k != "layer_norm"}
+    if (n_pre != 14 or set(nf4_only) != {"nf4_matmul", "nf4_gemm", "nf4_gemv"}
+            or counts.get("layer_norm", 0) != LN_CALLS["layer_norm"]
+            or not LN_CALLS["layer_norm"]):
+        fail(f"vqa: {n_pre} prefills, launches {counts}, vision tower LayerNorm "
+             f"calls {LN_CALLS['layer_norm']}")
 
     # the POPE and TextVQA evaluators score the answers
     pope = os.path.join(base, "pope")
@@ -4629,7 +4852,7 @@ def run_train_fp32(torch, root: str) -> dict:
     runner.make_train_step = timed_make_step
     C.CheckpointManager.save = lambda self, step, *a, **k: saves.append(step) or True
     packed_before = transformer2d._BSND_ATTN
-    _build.launches.clear()
+    clear_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -4764,8 +4987,6 @@ def run_cli_restore_jpeg(torch, root: str, ckpt: str) -> dict:
     the GroupNorm kernels as planned; then the same pixels written as a
     PNG through the CLI again, whose PNG must be the JPEG's, byte for
     byte."""
-    import collections
-
     import numpy as np
 
     from faithdiff_tpu_torch.ops import _build
@@ -4782,7 +5003,7 @@ def run_cli_restore_jpeg(torch, root: str, ckpt: str) -> dict:
     shutil.copy(src, os.path.join(dirs["in_jpeg"], JPEG_RESTORE))
     write_png(os.path.join(dirs["in_jpeg_png"], stem + ".png"), read_jpeg(src))
     with cli_pipeline_watch(torch) as seen:
-        _build.launches.clear()
+        clear_launches()
         split = run_cli(["restore", "--img_dir", dirs["in_jpeg"], "--save_dir",
                          dirs["out_jpeg"], "--checkpoint_dir", ckpt])
         counts = dict(_build.launches)
@@ -4795,6 +5016,7 @@ def run_cli_restore_jpeg(torch, root: str, ckpt: str) -> dict:
         expected["flash_attention_wide_merge"] = seen["watch"].wide_merges()
     for _, shape, itemsize, groups, aligned in seen["watch"].gn_seen:
         expected.update(plan_group_norm(shape, itemsize, groups, aligned).counters)
+    expected.update(seen["watch"].layer_norm_launches("cli_restore_jpeg"))
     if counts != dict(expected):
         fail(f"cli_restore_jpeg: launches {counts}, expected {dict(expected)}")
     split_png = run_cli(["restore", "--img_dir", dirs["in_jpeg_png"], "--save_dir",
@@ -4835,7 +5057,7 @@ def run_train_fp32_wide(torch, root: str) -> dict:
 
     save = C.CheckpointManager.save
     C.CheckpointManager.save = lambda self, step, *a, **k: True
-    _build.launches.clear()
+    clear_launches()
     t0 = time.perf_counter()
     try:
         if cli.main(["train", "--synthetic_data", "--dtype", "float32",
@@ -5116,13 +5338,14 @@ def main() -> int:
         ragged = check_attention_ragged(torch)
         variants = check_attention_variants(torch)
         fused, stats, apply_ = check_group_norm(torch)
+        ln = check_layer_norm(torch)
         f32 = check_attention_f32(torch)
     with phase("attention_wide_d"):
         wide = check_attention_wide(torch)
         wide.append(check_wide_merge(torch))
         wide.append(check_wide_merge(torch, torch.float32))
-    bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_ + f32
-           + wide if not r["ok"]]
+    bad = [r for r in attn + packed + ragged + variants + fused + stats + apply_ + ln
+           + f32 + wide if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: {bad}")
     with phase("jpeg_decode"):
@@ -5366,6 +5589,8 @@ def main() -> int:
         entry("group_norm_apply", apply_[GN_REPORT],
               "faithdiff_tpu_torch/csrc/group_norm.cu",
               "faithdiff_tpu/ops/groupnorm.py:92"),
+        entry("layer_norm", ln[LN_REPORT], "faithdiff_tpu_torch/csrc/layer_norm.cu",
+              "faithdiff_tpu/models/layers.py:98 (LayerNorm, one XLA fusion)"),
         entry("nf4_matmul",
               next(r for r in nf4 if (r["m"], r["in_f"], r["out_f"]) == NF4_REPORT),
               "faithdiff_tpu_torch/csrc/nf4_matmul.cu",

@@ -127,8 +127,11 @@ def information_fusion(layers: nn.ModuleList, proj: nn.Linear,
     g = b if group_size is None else group_size
     if b % g:
         raise ValueError(f"fusion group size {g} does not divide batch {b}")
-    # [b//g groups, pixels, g (the attention sequence), 2c]
-    tokens = tokens.reshape(b // g, g, 2 * c, h * w).permute(0, 3, 1, 2)
+    # [b//g groups, pixels, g (the attention sequence), 2c], made contiguous
+    # once: the residual adds keep it so, and each LayerNorm reads its rows
+    # in place
+    tokens = tokens.reshape(b // g, g, 2 * c, h * w).permute(0, 3, 1, 2) \
+        .contiguous()
     for layer in layers:
         tokens = layer(tokens)
     feat = proj(tokens)                                      # [b//g, hw, g, c']

@@ -16,6 +16,7 @@ import torch.utils.checkpoint
 from torch.nn.utils import parametrize
 
 from ..ops.groupnorm import group_norm
+from ..ops.layernorm import layer_norm
 from ..utils import profiling
 
 
@@ -118,7 +119,8 @@ class GroupNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last dim with single-pass fp32 statistics
-    (E[x^2] - E[x]^2), returning the input dtype."""
+    (E[x^2] - E[x]^2), returning the input dtype. CUDA tensors run the
+    hand-written kernel (`ops/layernorm.py`)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -127,12 +129,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        m2 = x32.square().mean(dim=-1, keepdim=True)
-        var = torch.clamp(m2 - mean.square(), min=0.0)
-        x32 = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (x32 * self.weight.float() + self.bias.float()).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class TimestepEmbedding(nn.Module):

@@ -31,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_attention", "flash_attention_f32", "flash_attention_wide",
-           "group_norm", "nf4_matmul")
+           "group_norm", "layer_norm", "nf4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source beside NVCC_FLAGS: the fp32 flash kernel's 16 large

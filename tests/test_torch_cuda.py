@@ -30,6 +30,10 @@ from faithdiff_tpu_torch.ops.groupnorm import (GroupNormLaunch, group_norm,
                                                group_norm_reference,
                                                group_stats_reference,
                                                plan_group_norm)
+from faithdiff_tpu_torch.ops.layernorm import (layer_norm,
+                                               layer_norm_reference,
+                                               layer_norm_tiled,
+                                               plan_layer_norm)
 from faithdiff_tpu_torch.ops.nf4_matmul import (nf4_gemm_tiled,
                                                 nf4_gemv_tiled,
                                                 nf4_matmul_kernel,
@@ -627,6 +631,145 @@ def test_group_norm_rejects_non_contiguous(cuda):
                    8)
 
 
+def _ln_inputs(cuda, shape, dtype, param_dtype=None, seed=5):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (2 * torch.randn(shape, generator=gen, device=cuda) + 0.3).to(dtype)
+    w = 1 + 0.1 * torch.randn(shape[-1], generator=gen, device=cuda)
+    b = 0.1 * torch.randn(shape[-1], generator=gen, device=cuda)
+    return x, w.to(param_dtype or dtype), b.to(param_dtype or dtype)
+
+
+def _ulps(out, ref, mantissa_bits: int) -> float:
+    """The largest |out - ref| in steps of the output type at the larger of
+    the two magnitudes. Magnitudes below 2^-8 count as 2^-8: there
+    y = t * w + b cancels, and the fp32 roundings of t * w (~1e-6, in
+    another order in the plain version) outgrow a step of y itself."""
+    big = torch.maximum(out.float().abs(), ref.float().abs()).clamp_min(2.0 ** -8)
+    step = torch.exp2(torch.floor(torch.log2(big)) - mantissa_bits)
+    return float(((out.float() - ref.float()).abs() / step).max())
+
+
+def _layer_norm_once(x, w, b, eps=1e-5):
+    _build.launches.clear()
+    out = layer_norm(x, w, b, eps)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"layer_norm": 1}
+    return out
+
+
+@pytest.mark.parametrize("shape", [(12 * 1024, 1280), (12 * 4096, 640),
+                                   (6, 16384, 2, 640)], ids=str)
+def test_layer_norm_at_unet_shapes(cuda, shape):
+    """The UNet's LayerNorms at batch 12 (the 1536x2048 restore) in bf16
+    with bf16 parameters, as the model holds them: one launch, within one
+    bf16 step of the plain version, the same bits on a second launch."""
+    x, w, b = _ln_inputs(cuda, shape, torch.bfloat16)
+    plan = plan_layer_norm(x.shape, x.stride(), 2)
+    assert plan.vector and not plan.copy
+    out = _layer_norm_once(x, w, b)
+    assert out.shape == x.shape and out.dtype == torch.bfloat16
+    assert _ulps(out, layer_norm_reference(x, w, b, 1e-5), 7) <= 1
+    assert torch.equal(out, layer_norm(x, w, b, 1e-5))
+
+
+@pytest.mark.parametrize("shape,dtype,param_dtype", [
+    ((2, 77, 768), torch.float32, torch.float32),      # a CLIP tower's, fp32
+    ((3, 9, 1280), torch.float32, torch.bfloat16),
+    ((4, 640), torch.bfloat16, torch.float32),
+    ((5, 7, 33), torch.bfloat16, torch.bfloat16),      # odd d: element loads
+    ((3, 2050), torch.float16, torch.float16),
+    ((2, 8192), torch.float32, torch.float32),         # eight warps a row
+    ((3, 16384), torch.bfloat16, torch.bfloat16)], ids=str)
+def test_layer_norm_matches_plain(cuda, shape, dtype, param_dtype):
+    """fp32 within 1e-5 * (1 + |ref|); bf16 and fp16 within one step of the
+    output type; the tile walk within the same; the same bits twice."""
+    x, w, b = _ln_inputs(cuda, shape, dtype, param_dtype)
+    out = _layer_norm_once(x, w, b, 1e-6)
+    ref = layer_norm_reference(x, w, b, 1e-6)
+    walk = layer_norm_tiled(x, w, b, 1e-6)
+    for got in (out, walk):
+        if dtype == torch.float32:
+            err = (got - ref).abs()
+            assert bool((err <= 1e-5 * (1 + ref.abs())).all()), float(err.max())
+        else:
+            assert _ulps(got, ref, 7 if dtype == torch.bfloat16 else 10) <= 1
+    assert torch.equal(out, layer_norm(x, w, b, 1e-6))
+
+
+def test_layer_norm_takes_views_in_place(cuda):
+    """A column slice (row stride 1280, 16-byte loads), a ragged slice and
+    an x off 16 bytes (element loads): no copy, each within one bf16 step;
+    a permuted x (last dim strided) is copied once, counted as
+    `layer_norm.copies` under the recorder."""
+    from faithdiff_tpu_torch.utils import profiling
+
+    x, w, b = _ln_inputs(cuda, (4, 8, 1280), torch.bfloat16)
+    flat = x.flatten()
+    views = [x[..., :640], x[..., 4:640], flat[1:1 + 31 * 1280].view(31, 1280)]
+    expect_vector = [True, False, False]
+    for view, vector in zip(views, expect_vector):
+        d = view.shape[-1]
+        plan = plan_layer_norm(view.shape, view.stride(), 2,
+                               view.data_ptr() % 16 == 0)
+        assert not plan.copy and plan.vector == vector
+        with profiling.recording() as rec:
+            out = _layer_norm_once(view, w[:d], b[:d])
+        assert not rec.counters.get("layer_norm.copies")
+        assert out.is_contiguous()
+        assert _ulps(out, layer_norm_reference(view, w[:d], b[:d], 1e-5), 7) <= 1
+    tokens = x.reshape(2, 2, 1280, 8).permute(0, 3, 1, 2)
+    assert plan_layer_norm(tokens.shape, tokens.stride(), 2).copy
+    with profiling.recording() as rec:
+        out = _layer_norm_once(tokens, w, b)
+    assert rec.counters["layer_norm.copies"] == 1
+    assert torch.equal(out, layer_norm(tokens.contiguous(), w, b, 1e-5))
+
+
+def test_layer_norm_rejects_what_it_does_not_take(cuda):
+    x, w, b = _ln_inputs(cuda, (4, 640), torch.bfloat16)
+    with pytest.raises(TypeError):
+        layer_norm(x.double(), w, b)
+    with pytest.raises(ValueError):
+        layer_norm(x, w[:320], b)
+    with pytest.raises(ValueError):
+        layer_norm(x, w.cpu(), b)
+    with pytest.raises(ValueError):
+        layer_norm(torch.zeros((2, 16392), device=cuda).bfloat16(),
+                   torch.ones(16392, device=cuda), torch.zeros(16392, device=cuda))
+
+
+def test_tiny_unet_runs_one_layer_norm_launch_each(cuda):
+    """The tiny UNet in bf16 on the card, one call: one `layer_norm` launch
+    for each of its 3 x 17 transformer-block and 2 x 2 information-
+    transformer LayerNorms, and no copy (`layer_norm.copies` 0)."""
+    from faithdiff_tpu_torch.config import tiny_unet_config
+    from faithdiff_tpu_torch.models.unet import UNet2DConditionModel
+    from faithdiff_tpu_torch.utils import profiling
+
+    torch.manual_seed(0)
+    with cuda:
+        unet = UNet2DConditionModel(tiny_unet_config()).eval().bfloat16()
+    b, s = 4, 16
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).bfloat16()
+
+    args = (rand(b, 4, s, s), torch.tensor([500.0, 20.0] * 2, device=cuda),
+            rand(b, 77, 64), rand(b, 64),
+            torch.tensor([[128., 96., 0., 4., 128., 96.]] * b, device=cuda),
+            rand(b, 64, s, s))
+    _build.launches.clear()
+    with torch.no_grad(), profiling.recording() as rec:
+        with profiling.span("unet"):
+            out = unet(*args, add_sample=True, fusion_group_size=2)
+        torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _build.launches["layer_norm"] == 3 * 17 + 2 * 2
+    counters = rec.take()[0]["counters"]
+    assert counters.get("layer_norm.copies", 0) == 0 and not rec.counters
+
+
 def _nf4(cuda, in_f, out_f, seed=2):
     g = torch.Generator(device=cuda).manual_seed(seed)
     w = torch.randn((in_f, out_f), generator=g, device=cuda) * in_f ** -0.5
@@ -950,7 +1093,8 @@ def test_int8_captioner_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("kind", ["flash", "flash_causal", "packed",
-                                  "group_norm_fused", "group_norm_two_pass"])
+                                  "group_norm_fused", "group_norm_two_pass",
+                                  "layer_norm"])
 def test_autograd_functions_match_plain_on_card(cuda, kind):
     """Each entry point under autograd on the card: one kernel launch in the
     forward, bitwise the bare kernel's output and within 1e-2 + 8e-3*|ref|
@@ -979,6 +1123,14 @@ def test_autograd_functions_match_plain_on_card(cuda, kind):
         bare = lambda q, k, v: A._flash_packed_launch(q, k, v, 4, 0.125)  # noqa: E731
         plain = lambda q, k, v: A.einsum_bsnd(q, k, v, 4, 0.125)  # noqa: E731
         counters = ("flash_attention_bsnd_fwd",)
+    elif kind == "layer_norm":
+        from faithdiff_tpu_torch.ops import layernorm as LN
+        inputs = [leaf((2, 77, 640), offset=0.3), leaf(640, torch.float32, 1.0),
+                  leaf(640, torch.float32)]
+        entry = lambda x, w, b: LN.layer_norm(x, w, b, 1e-5)  # noqa: E731
+        bare = lambda x, w, b: LN._layer_norm_launch(x, w, b, epsilon=1e-5)  # noqa: E731
+        plain = lambda x, w, b: LN.layer_norm_reference(x, w, b, 1e-5)  # noqa: E731
+        counters = ("layer_norm",)
     else:
         # the denoise encoder's first norm at 512 px outgrows a cluster
         shape = (2, 64, 16, 16) if kind == "group_norm_fused" else (1, 128, 512, 512)
