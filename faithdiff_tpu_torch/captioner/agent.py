@@ -1,6 +1,8 @@
 """Caption agent: the LLaVA-1.5 path from an image to its caption, vision
-tower + projector + LLaMA decode (counterpart of
-`faithdiff_tpu/captioner/agent.py`).
+tower + projector + LM decode (counterpart of
+`faithdiff_tpu/captioner/agent.py`). The LM is LLaMA (Mistral), MPT, or
+DeepSeek-V3 (Kimi-VL-A3B's LM, `deepseek_v3.py`), built by
+`build_caption_agent` from its config's type.
 
 The vicuna_v1 conversation with an `<image>` slot, the fixed question
 "Describe this image and its style in a very detailed manner.", sampling at
@@ -26,9 +28,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import span
 from .clip_vision import (CLIPVisionConfig, CLIPVisionTower, VisionProjector,
                           preprocess_clip_image, process_anyres_image)
 from .conversation import build_prompt
+from .deepseek_v3 import DeepseekV3Config, DeepseekV3ForCausalLM
 from .llama import (LlamaConfig, LlamaForCausalLM, greedy_generate,
                     is_quantized_projection, quantize_projection,
                     random_init_quantized_)
@@ -127,7 +131,8 @@ class CaptionAgent:
         return self.llama.embed(torch.from_numpy(np.asarray(ids, np.int64)).to(self.device))
 
     def _image_features(self, pixels: np.ndarray) -> torch.Tensor:
-        return self.projector(self.vision(torch.from_numpy(pixels).to(self.device)))
+        with span("caption.vision", images=pixels.shape[0]):
+            return self.projector(self.vision(torch.from_numpy(pixels).to(self.device)))
 
     @torch.no_grad()
     def build_multimodal_embeds(self, images, question: str = DEFAULT_QUESTION,
@@ -196,19 +201,23 @@ class CaptionAgent:
                       anyres_grid_pinpoints=None) -> List[str]:
         """Caption several images in one batched generate; finished samples
         pad with eos. Sampling draws from a `torch.Generator` seeded with
-        `seed` on the models' device."""
-        embeds, pad_len = self.build_multimodal_embeds(
-            images, question, image_aspect_ratio=image_aspect_ratio,
-            anyres_grid_pinpoints=anyres_grid_pinpoints)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        result = greedy_generate(
-            self.llama, embeds, max_new_tokens=self.max_new_tokens,
-            eos_token_id=int(self.tokenizer.eos_token_id or 2),
-            temperature=self.temperature, top_p=self.top_p,
-            generator=generator, stop_sequences=self._stop_sequences(),
-            pad_len=pad_len)
-        tokens = result.tokens.cpu().numpy()
-        lengths = result.lengths.cpu().numpy()
+        `seed` on the models' device. Span `caption` (`images`) around it
+        all, with `caption.vision`, `caption.prefill` and `caption.decode`
+        inside."""
+        n = 1 if isinstance(images, np.ndarray) and images.ndim == 3 else len(images)
+        with span("caption", images=n):
+            embeds, pad_len = self.build_multimodal_embeds(
+                images, question, image_aspect_ratio=image_aspect_ratio,
+                anyres_grid_pinpoints=anyres_grid_pinpoints)
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            result = greedy_generate(
+                self.llama, embeds, max_new_tokens=self.max_new_tokens,
+                eos_token_id=int(self.tokenizer.eos_token_id or 2),
+                temperature=self.temperature, top_p=self.top_p,
+                generator=generator, stop_sequences=self._stop_sequences(),
+                pad_len=pad_len)
+            tokens = result.tokens.cpu().numpy()
+            lengths = result.lengths.cpu().numpy()
         return [self.tokenizer.decode(tokens[i, :int(lengths[i])],
                                       skip_special_tokens=True).strip()
                 for i in range(tokens.shape[0])]
@@ -257,31 +266,44 @@ def load_quantized_(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
 @torch.no_grad()
 def build_caption_agent(
     tokenizer: Any,
-    llama_config: LlamaConfig = LlamaConfig(quant="nf4"),
+    llama_config=LlamaConfig(quant="nf4"),
     vision_config: CLIPVisionConfig = CLIPVisionConfig(),
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
     seed: int = 0,
+    init: bool = True,
 ) -> CaptionAgent:
-    """LLaVA-1.5 captioner on `device` in `dtype` (13B, nf4 by default),
-    with seeded random weights from a generator on the device: weight
-    matrices N(0, 1/fan_in), biases 0, norm weights 1, and each quantised
-    projection drawn in bf16 and quantised at once."""
+    """LLaVA-1.5 captioner on `device` in `dtype` (13B, nf4 by default; a
+    `DeepseekV3Config` gives the DeepSeek-V3 LM), with seeded random
+    weights from a generator on the device: weight matrices N(0, 1/fan_in)
+    (the model's own `random_init_` where it has one), biases 0, norm
+    weights 1, and each quantised projection drawn in bf16 and quantised at
+    once. With `init` False the weights are left unset on the device (built
+    on the meta device, then given memory) for a caller that loads or draws
+    every one of them."""
     from ..pipelines.factory import random_init_
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_caption_agent: device 'cuda' requested but CUDA "
                            "is not available (pass device='cpu' to run on the CPU)")
-    with device:
-        llama = LlamaForCausalLM(llama_config, dtype=dtype)
+    lm_class = (DeepseekV3ForCausalLM if isinstance(llama_config, DeepseekV3Config)
+                else LlamaForCausalLM)
+    with device if init else torch.device("meta"):
+        llama = lm_class(llama_config, dtype=dtype)
         vision = CLIPVisionTower(vision_config, dtype=dtype)
         projector = VisionProjector(llama_config.hidden_size,
                                     vision_config.hidden_size, dtype=dtype)
     generator = torch.Generator(device=device).manual_seed(seed)
     for model in (llama, vision, projector):
-        random_init_(model, generator)
+        if not init:
+            model.to_empty(device=device)
+        elif hasattr(model, "random_init_"):
+            model.random_init_(generator)
+        else:
+            random_init_(model, generator)
         model.eval().requires_grad_(False)
-    random_init_quantized_(llama, generator)
+    if init:
+        random_init_quantized_(llama, generator)
     return CaptionAgent(llama=llama, vision=vision, projector=projector,
                         tokenizer=tokenizer)

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention
+from ..utils.profiling import count, span
 from ..utils.quantize import (Int8Weight, NF4Weight, int8_matmul, nf4_matmul,
                               quantize_int8, quantize_nf4)
 
@@ -284,6 +285,9 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
+    # `greedy_generate` may pass left-pad counts (batched anyres prompts)
+    takes_pad_len = True
+
     def __init__(self, config: LlamaConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
@@ -295,6 +299,9 @@ class LlamaForCausalLM(nn.Module):
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.model.embed_tokens(input_ids)
+
+    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+        return init_kv_caches(self.config, batch, max_len, dtype, device)
 
     def forward(self, inputs_embeds, positions, kv_caches=None,
                 cache_index=None, attn_len=None, pad_len=None):
@@ -369,31 +376,28 @@ def greedy_generate(
     stop_sequences: Optional[Sequence[Sequence[int]]] = None,
     pad_len: Optional[torch.Tensor] = None,
 ) -> GenerateResult:
-    """Prefill + autoregressive decode over a static KV cache.
+    """Prefill + autoregressive decode over the model's static caches
+    (`model.init_caches`: LLaMA's and MPT's per-head K/V, DeepSeek-V3's
+    latent rows); a model with `decode_graph` replays a captured decode
+    step instead of calling its forward a token.
 
     temperature <= 0 is greedy; otherwise top-p sampling from `generator`.
     `stop_sequences`: a sample stops when its newest tokens match one; the
     keyword is left out of `lengths`. `pad_len`: optional [B] left-pad
     counts of variable-length prompts (LLaMA family only): padded positions
     are masked out of attention and of the rotary positions. Finished
-    samples are padded with eos; the loop ends when all are done."""
-    cfg = model.config
+    samples are padded with eos; the loop ends when all are done. Spans
+    `caption.prefill` and `caption.decode`; counter `caption.tokens` (new
+    tokens, summed over the batch)."""
     b, s, _ = prompt_embeds.shape
     dev = prompt_embeds.device
-    is_mpt = hasattr(cfg, "d_model")
     if pad_len is not None:
-        if is_mpt:
+        if not getattr(model, "takes_pad_len", False):
             raise ValueError("pad_len (batched anyres) is a LLaMA-family feature")
         pad_len = torch.as_tensor(pad_len, dtype=torch.int32, device=dev)
     stop_seqs = [torch.tensor([int(t) for t in q], dtype=torch.int32, device=dev)
                  for q in (stop_sequences or ()) if len(q)]
-    max_len = s + max_new_tokens
-    if is_mpt:
-        from .mpt import init_mpt_kv_caches
-
-        caches = init_mpt_kv_caches(cfg, b, max_len, prompt_embeds.dtype, dev)
-    else:
-        caches = init_kv_caches(cfg, b, max_len, prompt_embeds.dtype, dev)
+    caches = model.init_caches(b, s + max_new_tokens, prompt_embeds.dtype, dev)
     arange = torch.arange(s, device=dev)[None]
     extra = {}
     if pad_len is not None:
@@ -401,9 +405,24 @@ def greedy_generate(
         extra["pad_len"] = pad_len
     else:
         positions = arange.expand(b, s)
-    logits, caches = model(prompt_embeds, positions, caches, 0, s - 1, **extra)
+    with span("caption.prefill", tokens=s):
+        logits, caches = model(prompt_embeds, positions, caches, 0, s - 1, **extra)
+        tok = _sample_tokens(logits[:, -1, :], generator, temperature, top_p)
+    with span("caption.decode"):
+        out, lengths, steps = _decode_loop(model, tok, caches, s, max_new_tokens,
+                                           eos_token_id, temperature, top_p, generator,
+                                           stop_seqs, pad_len, extra)
+    count("caption.tokens", b * steps)
+    return GenerateResult(tokens=out, lengths=lengths)
 
-    tok = _sample_tokens(logits[:, -1, :], generator, temperature, top_p)
+
+def _decode_loop(model, tok, caches, s, max_new_tokens, eos_token_id, temperature,
+                 top_p, generator, stop_seqs, pad_len, extra):
+    """`greedy_generate`'s decode steps after the prefill's first token
+    `tok`: (tokens, lengths, tokens made)."""
+    b, dev = tok.shape[0], tok.device
+    graph = (model.decode_graph(caches)
+             if hasattr(model, "decode_graph") and max_new_tokens > 1 else None)
     done = tok == eos_token_id
     out = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.int32, device=dev)
     out[:, 0] = tok
@@ -418,9 +437,13 @@ def greedy_generate(
         pos = torch.full((b, 1), s + i, dtype=torch.int64, device=dev)
         if pad_len is not None:
             pos = pos - pad_len[:, None]
-        logits, caches = model(model.embed(tok[:, None].long()), pos, caches,
-                               s + i, s + i, **extra)
-        nxt = _sample_tokens(logits[:, -1, :], generator, temperature, top_p)
+        if graph is not None:
+            logits = graph(tok[:, None].long(), pos, s + i)
+        else:
+            logits, caches = model(model.embed(tok[:, None].long()), pos, caches,
+                                   s + i, s + i, **extra)
+            logits = logits[:, -1, :]
+        nxt = _sample_tokens(logits, generator, temperature, top_p)
         nxt = torch.where(done_prev, torch.full_like(nxt, eos_token_id), nxt)
         done = done_prev | (nxt == eos_token_id)
         out[:, i + 1] = nxt
@@ -432,7 +455,7 @@ def greedy_generate(
         i += 1
     if stop_seqs:
         lengths = torch.minimum(lengths, stop_len)
-    return GenerateResult(tokens=out, lengths=lengths)
+    return out, lengths, i + 1
 
 
 _QUANT_PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",

@@ -149,6 +149,9 @@ class MPTForCausalLM(nn.Module):
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.transformer.wte(input_ids)
 
+    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+        return init_mpt_kv_caches(self.config, batch, max_len, dtype, device)
+
     def forward(self, inputs_embeds, positions=None, kv_caches=None,
                 cache_index=None, attn_len=None):
         del positions  # ALiBi: relative biases only
